@@ -22,38 +22,75 @@
 //   Best cell: strictly greater score than every earlier row; within a row
 //   the first (lowest) lane with the row maximum.
 //
-// Design. The TPU kernel put the batch on vector lanes and the band on
-// sublanes and wrote an int32 traceback because of its compiler. Here:
-//   * sw_dp: one thread block per job, thread w owns band lane w (W threads,
-//     W a multiple of 32 up to 1024; the aligner uses 256). A loop over the
-//     job's query rows inside the block replaces the TPU's sequential
-//     row-block grid, and stops at the job's query length: rows past it are
-//     dead (all-NEG) in the reference and can neither raise the best nor be
-//     reached by the traceback, so they are not written.
-//     Values from lane w+1 of the previous row (insertions) come through a
-//     double-buffered shared-memory row. The horizontal (deletion)
-//     recurrences D/D2 are an exclusive prefix max of M_cur + w*EXT over the
-//     band: a warp __shfl_up_sync scan plus one pass over the warp totals in
-//     shared memory. The row maximum is a warp shuffle reduction that keeps
-//     the lowest lane on ties, then a pass over the warp results in order.
-//     The traceback is written as uint8, layout (B, Lq, W): each row of a
-//     job is one coalesced W-byte store.
-//   * sw_traceback: one thread per job walks its traceback bytes from the
-//     best cell, emitting =/X/I/D as 2-bit codes packed 4 per byte in step
-//     order (the JAX walk's layout), and zero-fills the rest of its row.
+// sw_dp design: one warp per job, no block barrier and no shared memory.
+//   * A block holds SW_DP_WARPS independent warps (default 4, the fastest of
+//     1, 2 and 4 at the aligner's B = 512 on an H100; PERF.md). Lane l owns
+//     the strip of band lanes w = l*S + s, s < S = W/32 (W = 64, 128, 256),
+//     and keeps its previous-row state in registers. The row loop stops at
+//     the job's query length: rows past it are dead (all-NEG) in the
+//     reference, can neither raise the best nor be reached by the
+//     traceback, and are not written. A ragged last block's spare warps
+//     return at once.
+//   * The row-state choice of row i (the first of M, I, D, I2, D2 holding
+//     the cell's maximum, the nested `>=` of the reference) is the diagonal
+//     input of row i+1 (its value and M-predecessor code), so it runs once
+//     per cell. It is the max of five unsigned codes
+//     max(x, 0) << (log2 W + 3) | priority, lane bits (W-1-w) << 3 added
+//     after: clamping at 0 is exact because M >= 0 in the reference. That
+//     code is carried to the next row and is also the cell's row-max key.
+//   * Insertions read band lane w+1 of the previous row: the thread's own
+//     element s+1, or lane l+1's element 0 through one __shfl_down_sync per
+//     carried quantity (M - OPEN, M - OPEN2, I - EXT, I2 - EXT2); each max
+//     with its extend bit is __vibmax_s32.
+//   * Deletions: D[w] = max_{w0<w} M[w0] - OPEN - (w-1-w0)*EXT, clamped to
+//     NEG, on the masked M and the unmasked D (the sequential form
+//     D[w] = max(D[w-1] - EXT, M[w-1] - OPEN, NEG) is the same, as the
+//     clamp commutes: NEG - EXT < NEG). Each cell takes the max of the
+//     carry from earlier lanes, an exclusive max of M + w*EXT from a 5-step
+//     __shfl_up_sync scan of the strips' maxima, and its candidate from
+//     earlier elements of its own strip (a running max computed before the
+//     scan), one __viaddmax_s32 each: no chain along the strip after the
+//     scan. D2 likewise with its constants.
+//   * The row maximum is one __reduce_max_sync over the cell codes: the
+//     largest holds the row maximum at its lowest lane, which is the
+//     reference's tie rule, with that cell's state. A row whose maximum is
+//     0 can never raise `best` (it starts at 0 and only a strictly greater
+//     value replaces it). The wrapper refuses 2*Lq >= 2^(29 - log2 W),
+//     where the score field could overflow (2^21 at W = 256).
+//   * The reference window slides one byte per row: each strip shifts by
+//     one code, takes lane l+1's old first code by shuffle, and lane 31
+//     loads one new byte, prefetched a row ahead with the query byte.
+//   * Each thread packs its S traceback bytes into one store, so a warp
+//     writes one coalesced W-byte row of the (B, Lq, W) uint8 layout.
 //
-// What bounds it on this card: sw_dp does about 60 int32 operations and one
-// byte of traceback store per cell, plus three __syncthreads per row, so a
-// block is latency-bound on its row chain; with one job per block the card
-// needs a few hundred jobs in flight to fill its SMs. Several jobs per
-// block, an anti-diagonal layout and less traceback traffic are left for
-// later work. sw_traceback is a dependent chain of byte loads per job.
+// What bounds sw_dp on this card: at (B, Lq, W) = (512, 2048, 256) with
+// query lengths 1536-2048 it has 233,189,120 live cells. Writing one
+// traceback byte per cell is 0.070 ms at 3.35 TB/s; the recurrence is 50
+// int32 operations per cell counted from this source (a DPX operation as
+// one; chip_smoke.py SW_DP_OPS_PER_CELL), 0.70 ms at 132 SMs x 64 int32
+// lanes x 1.98 GHz. So it is bound by integer issue; ptxas emits about 73
+// instructions per cell (a max with its predicate is a compare and a
+// select), nearly all on the integer pipe. Against the earlier block-per-job
+// kernel (thread = band lane) this design removes the three __syncthreads
+// per row, the shared-memory round trips for neighbouring lanes, the
+// per-cell scan and the warp-total pass (the scan now runs once per strip),
+// and the second pass of the state chain (shared by the row state and the
+// next row's diagonal).
+//
+// sw_traceback: one thread per job walks its traceback bytes from the best
+// cell, emitting =/X/I/D as 2-bit codes packed 4 per byte in step order
+// (the JAX walk's layout), and zero-fills the rest of its row. It is a
+// dependent chain of byte loads per job.
 //
 // Neither kernel allocates or synchronises; both launch on the stream they
 // are given, and each launcher returns cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#ifndef SW_DP_WARPS
+#define SW_DP_WARPS 4  // jobs (warps) per block of sw_dp
+#endif
 
 namespace {
 
@@ -71,87 +108,134 @@ constexpr int kOpX = 1;
 constexpr int kOpI = 2;
 constexpr int kOpD = 3;
 
-__global__ void sw_dp_kernel(const uint8_t* __restrict__ qs,
-                             const uint8_t* __restrict__ rs,
-                             const int32_t* __restrict__ qlens,
-                             const int32_t* __restrict__ dlos, int Lq, int Lr,
-                             int W, uint8_t* __restrict__ tb,
-                             int32_t* __restrict__ best_out,
-                             int32_t* __restrict__ bi_out,
-                             int32_t* __restrict__ bw_out,
-                             int32_t* __restrict__ bs_out) {
-  // shared layout (ints): up[2][3][W] (M, I, I2 of a row, double-buffered),
-  // dl[2][W] (unmasked D, D2 of the current row), wtot[2][32] (warp scan
-  // totals of A and A2), wbest[3][32] (warp row-best value, lane, state)
-  extern __shared__ int smem[];
-  int* up = smem;
-  int* dl = smem + 6 * W;
-  int* wtot = dl + 2 * W;
-  int* wbest = wtot + 64;
+__host__ __device__ constexpr int log2i(int n) { return n <= 1 ? 0 : 1 + log2i(n / 2); }
 
-  const int b = blockIdx.x;
-  const int w = threadIdx.x;
-  const int lane = w & 31;
-  const int warp = w >> 5;
-  const int nwarps = W >> 5;
+// max(a, b) and the predicate a >= b (DPX)
+__device__ __forceinline__ int bmax(int a, int b, bool& ge) {
+  return __vibmax_s32(a, b, &ge);
+}
+
+// the cell-state code of one component: max(x, 0) << V | priority
+template <int V>
+__device__ __forceinline__ unsigned enc(int x, unsigned prio) {
+  return (unsigned)__vimax_s32_relu(x, 0) * (1u << V) + prio;
+}
+
+template <int S>
+__global__ void __launch_bounds__(SW_DP_WARPS * 32)
+    sw_dp_kernel(const uint8_t* __restrict__ qs, const uint8_t* __restrict__ rs,
+                 const int32_t* __restrict__ qlens,
+                 const int32_t* __restrict__ dlos, int B, int Lq, int Lr,
+                 uint8_t* __restrict__ tb, int32_t* __restrict__ best_out,
+                 int32_t* __restrict__ bi_out, int32_t* __restrict__ bw_out,
+                 int32_t* __restrict__ bs_out) {
+  constexpr int W = 32 * S;
+  constexpr int kVal = log2i(W) + 3;     // score field of an encoded cell
+  constexpr unsigned kPos = 1u << kVal;  // encoded cells >= kPos score > 0
+
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * SW_DP_WARPS + (threadIdx.x >> 5);
+  if (b >= B) return;  // a ragged last block's spare warps
   const int qlen = min(max(qlens[b], 0), Lq);
   const int dlo = dlos[b];
   const uint8_t* q = qs + (size_t)b * Lq;
   const uint8_t* r = rs + (size_t)b * Lr;
-  uint8_t* tbb = tb + (size_t)b * Lq * W;
+  const int w0 = lane * S;
+  uint8_t* tbl = tb + (size_t)b * Lq * W + w0;
 
-  // virtual row -1: H = 0 everywhere (fresh local starts), gaps closed
-  int Mp = 0, Ip = kNeg, Dp = kNeg, I2p = kNeg, D2p = kNeg;
-  up[w] = 0;
-  up[W + w] = kNeg;
-  up[2 * W + w] = kNeg;
+  // Previous-row state of the strip: rc the reference codes of the current
+  // row; e the encoded row state (0 for virtual row -1 and for cells out of
+  // the reference, whose score and predecessor can never count); the
+  // insertion inputs the next row reads (M - OPEN, M - OPEN2, I - EXT,
+  // I2 - EXT2, masked).
+  int rc[S], mo[S], mo2[S], ie[S], i2e[S];
+  unsigned e[S];
+  const long long rbase = (long long)dlo + W + Lq + w0;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const long long ri = rbase + s;
+    rc[s] = (ri >= 0 && ri < Lr) ? r[ri] : 4;
+    e[s] = 0;
+    mo[s] = -kGapOpen;
+    mo2[s] = -kGapOpen2;
+    ie[s] = kNeg - kGapExt;
+    i2e[s] = kNeg - kGapExt2;
+  }
+  // deletion carry offsets of the strip's first lane, scan bases, key base
+  const int c0 = -kGapOpen - (w0 - 1) * kGapExt;
+  const int c02 = -kGapOpen2 - (w0 - 1) * kGapExt2;
+  const int abase = w0 * kGapExt, a2base = w0 * kGapExt2;
+  const unsigned lbase = (unsigned)(W - 1 - w0) << 3;
+  const long long rlast = (long long)dlo + W + Lq + (W - 1);  // lane W-1, row 0
   int best = 0, bi = -1, bw = -1, bs = 0;
-  const long long rbase = (long long)dlo + W + Lq + w;
-  __syncthreads();
+  int qc = qlen > 0 ? q[0] : 0;
 
   for (int i = 0; i < qlen; ++i) {
-    const int* upp = up + (i & 1) * 3 * W;  // previous row
-    int* upn = up + ((i & 1) ^ 1) * 3 * W;  // this row
-    const int qc = q[i];
-    const long long ri = rbase + i;
-    const int rc = (ri >= 0 && ri < Lr) ? r[ri] : 4;
-    const bool in_ref = rc != 4;
-    const bool eq = rc == qc;
+    // prefetch of row i+1's query byte and the band's new reference byte
+    const int qn = i + 1 < Lq ? q[i + 1] : 0;
+    const long long rn_idx = rlast + i + 1;
+    int rn = 4;
+    if (lane == 31 && rn_idx >= 0 && rn_idx < Lr) rn = r[rn_idx];
 
-    // diagonal move from (i-1, j-1): the same band lane
-    const int g34 = max(I2p, D2p);
-    const int g234 = max(Dp, g34);
-    const int gap_best = max(Ip, g234);
-    const int prev_best = max(Mp, gap_best);
-    const int m_pred =
-        Mp >= gap_best ? 1 : (Ip >= g234 ? 2 : (Dp >= g34 ? 3 : (I2p >= D2p ? 4 : 5)));
-    const int M_diag = max(prev_best, 0) + (eq ? kMatch : kMismatch);
-    const int m_bits = (M_diag > 0 && prev_best > 0) ? m_pred : 0;
-    const int Mc = in_ref ? max(0, M_diag) : kNeg;
+    // insertion inputs of element S-1: lane l+1's element 0 (band lane
+    // W-1 reads M = I = I2 = NEG)
+    int mo_u = __shfl_down_sync(kFull, mo[0], 1);
+    int mo2_u = __shfl_down_sync(kFull, mo2[0], 1);
+    int ie_u = __shfl_down_sync(kFull, ie[0], 1);
+    int i2e_u = __shfl_down_sync(kFull, i2e[0], 1);
+    if (lane == 31) {
+      mo_u = kNeg - kGapOpen;
+      mo2_u = kNeg - kGapOpen2;
+      ie_u = kNeg - kGapExt;
+      i2e_u = kNeg - kGapExt2;
+    }
 
-    // vertical moves (insertion) from (i-1, j): band lane w+1
-    const bool has_up = w < W - 1;
-    const int M_up = has_up ? upp[w + 1] : kNeg;
-    const int I_up = has_up ? upp[W + w + 1] : kNeg;
-    const int I2_up = has_up ? upp[2 * W + w + 1] : kNeg;
-    const int I_open = M_up - kGapOpen, I_ext = I_up - kGapExt;
-    const int I2_open = M_up - kGapOpen2, I2_ext = I2_up - kGapExt2;
-    const int i_bits = (I_ext >= I_open) ? 8 : 0;
-    const int i2_bits = (I2_ext >= I2_open) ? 32 : 0;
-    const int Ic = in_ref ? max(I_open, I_ext) : kNeg;
-    const int I2c = in_ref ? max(I2_open, I2_ext) : kNeg;
+    // pass 1: diagonal (M) and vertical (I, I2) moves; within the strip the
+    // deletion candidates from earlier elements (t) and the strip maxima of
+    // A = M + w*EXT for the scan
+    int Mc[S], Iv[S], I2v[S], t[S], t2[S];
+    unsigned bits[S];
+    int pre = 0, pre2 = 0;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const bool in_ref = rc[s] != 4;
+      const bool eq = rc[s] == qc;
+      // max(prev_best, 0) + score
+      const int mdiag = (int)(e[s] >> kVal) + (eq ? kMatch : kMismatch);
+      const unsigned mbits = (e[s] >= kPos && mdiag > 0) ? (~e[s] & 7u) : 0u;
+      Mc[s] = in_ref ? max(mdiag, 0) : kNeg;
+      const int mou = s + 1 < S ? mo[s + 1] : mo_u;
+      const int mo2u = s + 1 < S ? mo2[s + 1] : mo2_u;
+      const int ieu = s + 1 < S ? ie[s + 1] : ie_u;
+      const int i2eu = s + 1 < S ? i2e[s + 1] : i2e_u;
+      bool ib, i2b;
+      Iv[s] = bmax(ieu, mou, ib);
+      I2v[s] = bmax(i2eu, mo2u, i2b);
+      ie[s] = in_ref ? Iv[s] - kGapExt : kNeg - kGapExt;
+      i2e[s] = in_ref ? I2v[s] - kGapExt2 : kNeg - kGapExt2;
+      mo[s] = Mc[s] - kGapOpen;
+      mo2[s] = Mc[s] - kGapOpen2;
+      bits[s] = mbits | (ib ? 8u : 0u) | (i2b ? 32u : 0u) | (eq ? 128u : 0u);
+      if (s == 0) {
+        t[0] = kNeg;
+        t2[0] = kNeg;
+        pre = Mc[0];
+        pre2 = Mc[0];
+      } else {
+        t[s] = __viaddmax_s32(pre, -kGapOpen - (s - 1) * kGapExt, kNeg);
+        t2[s] = __viaddmax_s32(pre2, -kGapOpen2 - (s - 1) * kGapExt2, kNeg);
+        pre = __viaddmax_s32(Mc[s], s * kGapExt, pre);
+        pre2 = __viaddmax_s32(Mc[s], s * kGapExt2, pre2);
+      }
+    }
 
-    // horizontal moves (deletion): D[w] = max_{w0<w} M[w0] - OPEN -
-    // (w-1-w0)*EXT, an exclusive prefix max of A = M + w*EXT over the band
-    int a = Mc + w * kGapExt, a2 = Mc + w * kGapExt2;
+    // exclusive prefix max of A (and A2) over the lanes before this strip
+    int a = pre + abase, a2 = pre2 + a2base;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const int ta = __shfl_up_sync(kFull, a, off);
-      const int ta2 = __shfl_up_sync(kFull, a2, off);
-      if (lane >= off) {
-        a = max(a, ta);
-        a2 = max(a2, ta2);
-      }
+      // lanes below `off` get their own value back: max is unchanged
+      a = max(a, __shfl_up_sync(kFull, a, off));
+      a2 = max(a2, __shfl_up_sync(kFull, a2, off));
     }
     int ea = __shfl_up_sync(kFull, a, 1);
     int ea2 = __shfl_up_sync(kFull, a2, 1);
@@ -159,84 +243,80 @@ __global__ void sw_dp_kernel(const uint8_t* __restrict__ qs,
       ea = kNeg;
       ea2 = kNeg;
     }
-    if (lane == 31) {
-      wtot[warp] = a;
-      wtot[32 + warp] = a2;
-    }
-    __syncthreads();
-    for (int v = 0; v < warp; ++v) {
-      ea = max(ea, wtot[v]);
-      ea2 = max(ea2, wtot[32 + v]);
-    }
-    const int Dun = max(ea - kGapOpen - (w - 1) * kGapExt, kNeg);
-    const int D2un = max(ea2 - kGapOpen2 - (w - 1) * kGapExt2, kNeg);
-    upn[w] = Mc;
-    upn[W + w] = Ic;
-    upn[2 * W + w] = I2c;
-    dl[w] = Dun;
-    dl[W + w] = D2un;
-    __syncthreads();
+    const int x0 = ea + c0, x02 = ea2 + c02;
 
-    // deletion direction bits compare against lane w-1 of this row (the
-    // unmasked D values, the masked M value)
-    const int M_left = w > 0 ? upn[w - 1] : kNeg;
-    const int D_left = w > 0 ? dl[w - 1] : kNeg;
-    const int D2_left = w > 0 ? dl[W + w - 1] : kNeg;
-    const int d_bits = ((D_left - kGapExt) >= (M_left - kGapOpen)) ? 16 : 0;
-    const int d2_bits = ((D2_left - kGapExt2) >= (M_left - kGapOpen2)) ? 64 : 0;
-    const int Dc = in_ref ? Dun : kNeg;
-    const int D2c = in_ref ? D2un : kNeg;
-    tbb[(size_t)i * W + w] =
-        (uint8_t)(m_bits | i_bits | d_bits | i2_bits | d2_bits | (eq ? 128 : 0));
-
-    // row maximum: value, first lane holding it, its state (M, I, D, I2, D2
-    // by nested >=)
-    const int h34 = max(I2c, D2c);
-    const int h234 = max(Dc, h34);
-    const int gap_cur = max(Ic, h234);
-    int val = max(Mc, gap_cur);
-    int st = Mc >= gap_cur ? 0 : (Ic >= h234 ? 1 : (Dc >= h34 ? 2 : (I2c >= D2c ? 3 : 4)));
-    int ln = w;
+    // pass 2: deletions (unmasked D, D2), each cell from the carry and its
+    // strip candidate; the encoded row state and the strip's best key
+    unsigned key = 0;
+    int Dp = 0, D2p = 0;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const int ov = __shfl_down_sync(kFull, val, off);
-      const int ol = __shfl_down_sync(kFull, ln, off);
-      const int os = __shfl_down_sync(kFull, st, off);
-      if (ov > val || (ov == val && ol < ln)) {
-        val = ov;
-        ln = ol;
-        st = os;
+    for (int s = 0; s < S; ++s) {
+      const int D = __viaddmax_s32(x0, -s * kGapExt, t[s]);
+      const int D2 = __viaddmax_s32(x02, -s * kGapExt2, t2[s]);
+      if (s > 0) {
+        bits[s] |= (Dp - kGapExt >= mo[s - 1] ? 16u : 0u) |
+                   (D2p - kGapExt2 >= mo2[s - 1] ? 64u : 0u);
+      }
+      Dp = D;
+      D2p = D2;
+      // max(x, 0) << kVal | priority: the largest code is the largest
+      // score, ties to M, I, D, I2, D2 in that order (the nested `>=`).
+      // Clamping at 0 is exact: M >= 0 in the reference, so a cell's
+      // maximum is >= 0, and at 0 it is M's.
+      const unsigned eM = (unsigned)Mc[s] * (1u << kVal) + 6u;
+      const unsigned eI = enc<kVal>(Iv[s], 5u);
+      const unsigned eD = enc<kVal>(D, 4u);
+      const unsigned eI2 = enc<kVal>(I2v[s], 3u);
+      const unsigned eD2 = enc<kVal>(D2, 2u);
+      const unsigned ec = max(max(eM, eI), max(eD, max(eI2, eD2)));
+      e[s] = rc[s] != 4 ? ec + (lbase - 8u * s) : 0u;
+      key = max(key, e[s]);
+    }
+    // deletion bits of element 0 compare against lane l-1's element S-1
+    // (band lane 0 reads D = M = NEG: both bits set)
+    const int Dl = __shfl_up_sync(kFull, Dp, 1);
+    const int D2l = __shfl_up_sync(kFull, D2p, 1);
+    const int Ml = __shfl_up_sync(kFull, Mc[S - 1], 1);
+    const bool db0 = lane == 0 || Dl - kGapExt >= Ml - kGapOpen;
+    const bool d2b0 = lane == 0 || D2l - kGapExt2 >= Ml - kGapOpen2;
+    bits[0] |= (db0 ? 16u : 0u) | (d2b0 ? 64u : 0u);
+
+    // one store of the strip's S traceback bytes
+    uint8_t* row = tbl + (size_t)i * W;
+    if constexpr (S == 2) {
+      *reinterpret_cast<uint16_t*>(row) = (uint16_t)(bits[0] | (bits[1] << 8));
+    } else {
+      uint32_t words[S / 4];
+#pragma unroll
+      for (int g = 0; g < S / 4; ++g)
+        words[g] = bits[4 * g] | (bits[4 * g + 1] << 8) |
+                   (bits[4 * g + 2] << 16) | (bits[4 * g + 3] << 24);
+      if constexpr (S == 4) {
+        *reinterpret_cast<uint32_t*>(row) = words[0];
+      } else {
+        *reinterpret_cast<uint2*>(row) = make_uint2(words[0], words[1]);
       }
     }
-    if (lane == 0) {
-      wbest[warp] = val;
-      wbest[32 + warp] = ln;
-      wbest[64 + warp] = st;
+
+    // row maximum: the largest key holds the best score at its lowest lane,
+    // with that cell's state
+    const unsigned rk = __reduce_max_sync(kFull, key);
+    const int rv = (int)(rk >> kVal);
+    if (rv > best) {
+      best = rv;
+      bi = i;
+      bw = W - 1 - (int)((rk >> 3) & (W - 1));
+      bs = 6 - (int)(rk & 7u);
     }
-    __syncthreads();
-    if (w == 0) {
-      int rv = wbest[0], rw = wbest[32], rst = wbest[64];
-      for (int v = 1; v < nwarps; ++v) {
-        if (wbest[v] > rv) {
-          rv = wbest[v];
-          rw = wbest[32 + v];
-          rst = wbest[64 + v];
-        }
-      }
-      if (rv > best) {
-        best = rv;
-        bi = i;
-        bw = rw;
-        bs = rst;
-      }
-    }
-    Mp = Mc;
-    Ip = Ic;
-    Dp = Dc;
-    I2p = I2c;
-    D2p = D2c;
+
+    // slide the reference window one column for row i+1
+    const int rin = __shfl_down_sync(kFull, rc[0], 1);
+#pragma unroll
+    for (int s = 0; s + 1 < S; ++s) rc[s] = rc[s + 1];
+    rc[S - 1] = lane == 31 ? rn : rin;
+    qc = qn;
   }
-  if (w == 0) {
+  if (lane == 0) {
     best_out[b] = best;
     bi_out[b] = bi;
     bw_out[b] = bw;
@@ -313,11 +393,32 @@ extern "C" {
 int sw_dp_launch(const void* qs, const void* rs, const void* qlens,
                  const void* dlos, int B, int Lq, int Lr, int W, void* tb,
                  void* best, void* bi, void* bw, void* bs, void* stream) {
-  const size_t smem = (size_t)(8 * W + 64 + 96) * sizeof(int);
-  sw_dp_kernel<<<B, W, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)qs, (const uint8_t*)rs, (const int32_t*)qlens,
-      (const int32_t*)dlos, Lq, Lr, W, (uint8_t*)tb, (int32_t*)best,
-      (int32_t*)bi, (int32_t*)bw, (int32_t*)bs);
+  const int blocks = (B + SW_DP_WARPS - 1) / SW_DP_WARPS;
+  const dim3 threads(SW_DP_WARPS * 32);
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint8_t* q = (const uint8_t*)qs;
+  const uint8_t* r = (const uint8_t*)rs;
+  const int32_t* ql = (const int32_t*)qlens;
+  const int32_t* dl = (const int32_t*)dlos;
+  uint8_t* t = (uint8_t*)tb;
+  int32_t *o0 = (int32_t*)best, *o1 = (int32_t*)bi, *o2 = (int32_t*)bw,
+          *o3 = (int32_t*)bs;
+  switch (W) {
+    case 64:
+      sw_dp_kernel<2><<<blocks, threads, 0, st>>>(q, r, ql, dl, B, Lq, Lr, t,
+                                                  o0, o1, o2, o3);
+      break;
+    case 128:
+      sw_dp_kernel<4><<<blocks, threads, 0, st>>>(q, r, ql, dl, B, Lq, Lr, t,
+                                                  o0, o1, o2, o3);
+      break;
+    case 256:
+      sw_dp_kernel<8><<<blocks, threads, 0, st>>>(q, r, ql, dl, B, Lq, Lr, t,
+                                                  o0, o1, o2, o3);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

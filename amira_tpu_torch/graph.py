@@ -136,8 +136,9 @@ class GeneMerGraph:
         self._minEdgeCoverage = 1
         self.vocab = vocab if vocab is not None else GeneVocab()
         # every build goes through the cache: a one-off build gets its own
-        # (on the CPU; the pipeline's shared cache carries its device)
-        self._cache = cache if cache is not None else GraphBuildCache()
+        # (the pipeline's shared cache carries its device); only the tests'
+        # uncached constructor takes this CPU cache
+        self._cache = cache if cache is not None else GraphBuildCache("cpu")
         self._nodes_d: dict[int, Node] = {}
         self._edges_d: dict[int, Edge] = {}
         self._readNodes_d: dict[str, list] = {}

@@ -64,7 +64,7 @@ class GraphBuildCache:
     GeneMerGraph the run constructs (all k values).
     """
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device):
         # torch device of the large window-hashing passes of every build
         # that shares this cache (graph.GeneMerGraph._compute_cache_misses)
         self.device = device

@@ -459,7 +459,7 @@ class Aligner:
 
     def __init__(
         self, references: dict[str, str], band_width: int = 256, seed_k: int = 15,
-        device="cpu",
+        *, device,
     ):
         # torch device of the DP + traceback (ops/sw_batch): the CUDA
         # kernels for a cuda device, their plain versions on the CPU

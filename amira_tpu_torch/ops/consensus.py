@@ -111,10 +111,10 @@ def consensus_from_alignments(draft: str, alignments) -> str:
     return "".join(parts)
 
 
-def polish_once(draft: str, reads: dict[str, str], band_width: int = 256):
-    """Align every read to the draft and emit the consensus (one
+def polish_once(draft: str, reads: dict[str, str], band_width: int = 256, *, device):
+    """Align every read to the draft on `device` and emit the consensus (one
     racon_one_iteration equivalent). Returns (consensus, alignments)."""
-    aligner = Aligner({"draft": draft}, band_width=band_width)
+    aligner = Aligner({"draft": draft}, band_width=band_width, device=device)
     alns = []
     for rid, hits in aligner.map_reads(reads).items():
         if "draft" not in hits:
@@ -128,12 +128,15 @@ def polish_once(draft: str, reads: dict[str, str], band_width: int = 256):
     return consensus_from_alignments(draft, alns), alns
 
 
-def polish(draft: str, reads: dict[str, str], iterations: int = 5, band_width: int = 256) -> str:
+def polish(
+    draft: str, reads: dict[str, str], iterations: int = 5, band_width: int = 256,
+    *, device,
+) -> str:
     """Iterated polish: re-align + consensus, `iterations` times
     (result_utils.py:541-556)."""
     seq = draft
     for _ in range(iterations):
-        new_seq, alns = polish_once(seq, reads, band_width)
+        new_seq, alns = polish_once(seq, reads, band_width, device=device)
         if not alns:
             break
         if new_seq == seq:

@@ -301,7 +301,7 @@ class KmerCounter:
             start = next_start
 
     @classmethod
-    def from_sequences(cls, seqs, k: int = 15, min_count: int = 0, device="cpu"):
+    def from_sequences(cls, seqs, k: int = 15, min_count: int = 0, *, device):
         """Count table over `seqs`: the dense table on a cuda device, the
         host counter on the CPU."""
         self = cls(k)
@@ -459,7 +459,7 @@ def estimate_kmer_depth(kmer_counts: dict[int, int]) -> int:
     return int(x_values[max_peak])
 
 
-def estimate_overall_read_depth(sequences, k: int = 15, device="cpu"):
+def estimate_overall_read_depth(sequences, k: int = 15, *, device):
     """Count -> cutoff-fit -> recount -> depth peak
     (result_utils.py:1050-1080). Returns (depth, filtered KmerCounter)."""
     full = KmerCounter.from_sequences(sequences, k, device=device)

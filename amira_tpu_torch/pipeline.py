@@ -365,7 +365,7 @@ def run_pipeline(args) -> None:
             args.identity,
             args.coverage,
             args.debug,
-            device,
+            device=device,
         )
     if len(result_df) == 0:
         write_empty_result(args.output_dir)
@@ -380,7 +380,7 @@ def run_pipeline(args) -> None:
             args.output_dir,
             15,
             args.debug,
-            device,
+            device=device,
         )
     result_df = supplement_result_df(
         result_df, copy_numbers, mean_depth_per_reference, longest_read_lengths,

@@ -76,6 +76,8 @@ def remove_poorly_mapped_genes(
     fastq_content,
     band_width=256,
     max_reads=None,
+    *,
+    device,
 ):
     """Drop non-AMR consensus genes with > threshold uncovered bases when the
     raw reads are aligned back to the pandora consensus
@@ -94,7 +96,7 @@ def remove_poorly_mapped_genes(
     if not genes or not fastq_content:
         return {}
     refs = {g: pandora_consensus[g]["sequence"] for g in genes}
-    aligner = Aligner(refs, band_width=band_width)
+    aligner = Aligner(refs, band_width=band_width, device=device)
     depth = {g: np.zeros(len(refs[g]), dtype=np.int32) for g in genes}
     read_ids = list(fastq_content.keys())
     if max_reads is not None and len(read_ids) > max_reads:
@@ -137,6 +139,8 @@ def convert_pandora_output(
     gene_length_lower_threshold,
     gene_length_upper_threshold,
     fastq_content,
+    *,
+    device,
 ):
     """Parse the pandora pseudo-SAM into per-read gene calls + positions and
     filter rare genes (pre_processing.py:190-284)."""
@@ -144,7 +148,7 @@ def convert_pandora_output(
     gene_position_dict: dict = {}
     geneCounts: dict = {}
     consensus_depths = remove_poorly_mapped_genes(
-        pandora_consensus, 0.2, genesOfInterest, fastq_content
+        pandora_consensus, 0.2, genesOfInterest, fastq_content, device=device
     )
     for read in parse_sam(pandoraSam):
         if not read.is_mapped:

@@ -317,7 +317,7 @@ def _cigar_to_string(cigar_tuples):
 
 
 def get_closest_allele_from_polished(
-    polished_seq, references, required_coverage, band_width=256, device="cpu"
+    polished_seq, references, required_coverage, band_width=256, *, device
 ):
     """Best reference for the polished allele ("allele" mode,
     result_utils.py:345-420, 557-570): references are partitioned into
@@ -373,7 +373,8 @@ def compare_reads_to_references(
     required_coverage,
     band_width=256,
     debug=False,
-    device="cpu",
+    *,
+    device,
 ):
     """Per-allele polish-and-match pipeline (result_utils.py:494-725).
 
@@ -431,7 +432,7 @@ def compare_reads_to_references(
             [f">{valid_allele}\n{polished}"],
         )
         entries = get_closest_allele_from_polished(
-            polished, references, required_coverage, band_width, device
+            polished, references, required_coverage, band_width, device=device
         )
         row = _row_from_polished(
             out_dir, gene_name, allele_name, polished, entries,
@@ -559,7 +560,8 @@ def get_alleles(
     required_identity,
     required_coverage,
     debug=False,
-    device="cpu",
+    *,
+    device,
 ):
     """Polish-and-match every allele cluster (result_utils.py:728-765).
 
@@ -765,7 +767,7 @@ def get_alleles(
 
 def estimate_copy_numbers(
     fastq_content, path_reads, amira_alleles, output_dir, k=15, debug=False,
-    device="cpu",
+    *, device,
 ):
     """k-mer-depth copy numbers per allele path
     (result_utils.py:1089-1159), via the on-device k-mer engine."""
@@ -783,7 +785,7 @@ def estimate_copy_numbers(
         o.write(json.dumps(path_mapping))
     t0 = _time.time()
     all_seqs = [v["sequence"] for v in fastq_content.values()]
-    read_depth, counter = estimate_overall_read_depth(all_seqs, k, device)
+    read_depth, counter = estimate_overall_read_depth(all_seqs, k, device=device)
     t1 = _time.time()
     sys.stderr.write(f"\namira-tpu: estimated k-mer depth = {read_depth}.\n")
     sys.stderr.write(

@@ -1,15 +1,26 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (`amira_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--reads N]
+    python3 chip_smoke.py [--reads N] [--kernels-only] [--baseline-dp SRC]
+                          [--dp-warps 1,2,4]
 
 Run from the root of a checkout. Phases, each printing its own lines:
 
 1. Device and build: the card's name and power limit (nvidia-smi), and the
-   nvcc build of the hand-written kernels in amira_tpu_torch/csrc/.
+   nvcc build of the hand-written kernels in amira_tpu_torch/csrc/, with
+   ptxas's register and spill report.
 2. Kernels against their plain PyTorch versions on the card, exactly, at
-   the test shapes and at the aligner's production shape (B=512, Lq=2048,
-   W=256), with CUDA-event times of both.
+   the test shapes (the last with padded jobs, query lengths 1 and < W/32,
+   strongly negative diagonals and a ragged last block) and at the
+   aligner's production shape (B=512, Lq=2048, W=256), with CUDA-event
+   times of both and each kernel's bound. Then a sweep of sw_dp at
+   Lq=2048, W=256 over B = 128, 512, 1024, 2048 (ms, Gcell/s over live
+   cells), exact against the plain version at every point.
+   --baseline-dp SRC builds another source of the same C interface (an
+   earlier sw_batch.cu) and --dp-warps builds this source with other warps
+   per block (-DSW_DP_WARPS); the sweep then times each of them on the same
+   inputs, in the order baseline, variants, this kernel, and back again,
+   and holds their outputs to this kernel's.
 3. The committed golden: the CLI with --device cuda on the seed-7 isolate
    must write tests/goldens/amira_results_seed7.tsv byte for byte.
 4. The main path at a real isolate size: a 4,003-slot E. coli-like genome,
@@ -23,8 +34,9 @@ Run from the root of a checkout. Phases, each printing its own lines:
 The next-to-last lines are the card line and one JSON object describing
 each kernel; the last line is {"ok": true, "device": {...}}. Any failed
 phase exits non-zero without that line, as does a machine without CUDA.
-Data, outputs and a JSON summary (chip_work/chip_smoke_summary.json) go
-under chip_work/, which .gitignore lists.
+--kernels-only stops after phase 2 and prints no result line. Data, outputs
+and a JSON summary (chip_work/chip_smoke_summary.json) go under chip_work/,
+which .gitignore lists.
 """
 
 from __future__ import annotations
@@ -43,9 +55,29 @@ WORK = os.path.join(ROOT, "chip_work", "smoke")
 SUMMARY = os.path.join(ROOT, "chip_work", "chip_smoke_summary.json")
 GOLDEN = os.path.join(ROOT, "tests", "goldens", "amira_results_seed7.tsv")
 
-# (W, Lq, B): the CPU tests' shapes and the aligner's production shape
-TEST_SHAPES = [(64, 128, 24), (128, 256, 9)]
+# (W, Lq, B): the CPU tests' shapes and the aligner's production shape; the
+# last test shape plants the DP kernel's edge cases
+TEST_SHAPES = [(64, 128, 24), (128, 256, 9), (256, 192, 37)]
+EDGE_SHAPE = (256, 192, 37)
 MAIN_SHAPE = (256, 2048, 512)
+SWEEP_B = (128, 512, 1024, 2048)  # sw_dp at Lq=2048, W=256
+
+# Bounds. H100 SXM: HBM3 at 3.35 TB/s (NVIDIA's data sheet); int32 issue of
+# 132 SMs x 64 int32 lanes x 1.98 GHz boost clock (Hopper white paper).
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# int32 operations per live cell of sw_dp, counted from the kernel's two
+# passes with a DPX operation as one: pass 1 27 (reference and match tests,
+# score, the carried score, M's predecessor bits 4, M's clamp and mask, I
+# and I2 with their carried inputs and masks 8, M - OPEN and M - OPEN2, the
+# extend, match and predecessor flags 3, the strip's deletion candidates and
+# running maxima 4); pass 2 23 (D and D2, their extend flags 5, five cell
+# codes 9, their max 4, lane bits, mask, strip key). Per-row work (shuffles,
+# the scan, the reduction, the store) is left out: the W/32 cells of a
+# strip share it.
+SW_DP_OPS_PER_CELL = 50
+# int32 operations per step of sw_traceback's walk, counted from its loop
+SW_TB_OPS_PER_STEP = 20
 
 
 def fail(msg: str):
@@ -53,11 +85,12 @@ def fail(msg: str):
     sys.exit(1)
 
 
-def sw_inputs(W, Lq, B, seed, device, min_len=8):
+def sw_inputs(W, Lq, B, seed, device, min_len=8, edges=False):
     """A batch of alignment jobs laid out as the aligner lays them out:
     noisy query/reference pairs (2% substitutions, 2% indels), every fifth
     pair unrelated, band diagonals near the aligner's placement (-W/2) or
-    strongly negative, and three padded (empty) lanes."""
+    random, and three padded (empty) lanes. `edges` plants query lengths 1,
+    W/32 - 1 and 3 and two strongly negative diagonals."""
     import numpy as np
     import torch
     from synthetic import mutate_fast
@@ -83,6 +116,11 @@ def sw_inputs(W, Lq, B, seed, device, min_len=8):
             dlos[b] = rng.randint(-(Lq - 1), max(len(r) - 1, 1))
         else:
             dlos[b] = -W // 2 + rng.randint(-16, 17)
+    if edges:
+        for b, n in enumerate((1, W // 32 - 1, 3)):
+            qs[b, n:] = 4
+            qlens[b] = n
+        dlos[3], dlos[4] = -(Lq - 1), -(Lq - W // 2)
     return [torch.from_numpy(a).to(device) for a in (qs, rs, qlens, dlos)]
 
 
@@ -112,10 +150,64 @@ def cuda_ms(fn, reps, warm=1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_kernels(device):
-    """Phase 2: each kernel against its plain version on the same inputs.
-    Returns {kernel name: {"max_abs_err", "ms", "plain_ms"}} with the times
-    at the production shape."""
+def bound(bytes_, ops):
+    """Least time on the card for moving `bytes_` and issuing `ops` int32
+    operations: (ms, "bytes" or "operations", kind)."""
+    b_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / INT32_OPS_PER_S * 1e3
+    return (o_ms, "operations", "int32_issue") if o_ms >= b_ms else (b_ms, "bytes", "bytes")
+
+
+def dp_bound(qlens, W):
+    """Live cells of a sw_dp call and its bound: each live query byte and
+    reference-window byte read once, one traceback byte written per live
+    cell, six int32 per job; SW_DP_OPS_PER_CELL per live cell."""
+    live = int(qlens.sum())
+    B = qlens.numel()
+    window = live + (W - 1) * int((qlens > 0).sum())
+    cells = live * W
+    return cells, bound(live + window + cells + 24 * B, cells * SW_DP_OPS_PER_CELL)
+
+
+def tb_bound(packed, n_steps):
+    """sw_traceback's bound: one traceback byte read per step of the walks,
+    the packed ops written, eight int32 per job; SW_TB_OPS_PER_STEP per
+    step."""
+    steps = int(n_steps.sum())
+    return bound(steps + packed.numel() + 32 * n_steps.numel(), steps * SW_TB_OPS_PER_STEP)
+
+
+def dp_diff(got, ref, qlens) -> int:
+    """Largest difference between two sw_dp results (tb on live rows,
+    best, bi, bw, bs)."""
+    import torch
+
+    live = torch.arange(got[0].shape[1], device=qlens.device)[None, :] < qlens[:, None].long()
+    return max_abs_diff([(got[0][live], ref[0][live])] + list(zip(got[1:], ref[1:])))
+
+
+def dp_with(lib, qs, rs, qlens, dlos, W):
+    """sw_dp through another build of a kernel with sw_dp_launch's C
+    interface. Not counted in sw_batch.LAUNCHES."""
+    import torch
+
+    B, Lq = qs.shape
+    tb = torch.empty((B, Lq, W), dtype=torch.uint8, device=qs.device)
+    outs = [torch.empty(B, dtype=torch.int32, device=qs.device) for _ in range(4)]
+    err = lib.sw_dp_launch(
+        qs.data_ptr(), rs.data_ptr(), qlens.data_ptr(), dlos.data_ptr(), B, Lq,
+        rs.shape[1], W, tb.data_ptr(), *(o.data_ptr() for o in outs),
+        torch.cuda.current_stream().cuda_stream,
+    )
+    if err:
+        fail(f"sw_dp of another build: CUDA error {err}")
+    return (tb, *outs)
+
+
+def check_kernels(device, variants=()):
+    """Phase 2: each kernel against its plain version on the same inputs,
+    then the sw_dp sweep, timing `variants` ([(label, library)]) beside it.
+    Returns ({kernel name: its JSON fields measured here}, sweep rows)."""
     import torch
 
     from amira_tpu_torch.ops import sw_batch
@@ -124,14 +216,14 @@ def check_kernels(device):
     errs = {"sw_dp": 0, "sw_traceback": 0}
     for W, Lq, B in TEST_SHAPES + [MAIN_SHAPE]:
         min_len = 3 * Lq // 4 if (W, Lq, B) == MAIN_SHAPE else 8
-        qs, rs, qlens, dlos = sw_inputs(W, Lq, B, seed=Lq + B, device=device, min_len=min_len)
+        qs, rs, qlens, dlos = sw_inputs(
+            W, Lq, B, seed=Lq + B, device=device, min_len=min_len,
+            edges=(W, Lq, B) == EDGE_SHAPE,
+        )
         tb, best, bi, bw, bs = sw_batch.sw_dp(qs, rs, qlens, dlos, W)
         r_tb, r_best, r_bi, r_bw, r_bs = sw_batch.sw_dp_reference(qs, rs, qlens, dlos, W)
         # traceback rows at or past a job's query length are unspecified
-        live = torch.arange(Lq, device=device)[None, :] < qlens[:, None].long()
-        dp_err = max_abs_diff(
-            [(best, r_best), (bi, r_bi), (bw, r_bw), (bs, r_bs), (tb[live], r_tb[live])]
-        )
+        dp_err = dp_diff((tb, best, bi, bw, bs), (r_tb, r_best, r_bi, r_bw, r_bs), qlens)
         tb_out = sw_batch.sw_traceback(tb, best, bi, bw, bs, dlos, W)
         r_tb_out = sw_batch.sw_traceback_reference(tb, best, bi, bw, bs, dlos, W)
         tb_err = max_abs_diff(list(zip(tb_out, r_tb_out)))
@@ -162,10 +254,12 @@ def check_kernels(device):
     W, Lq, B = MAIN_SHAPE
     qs, rs, qlens, dlos = sw_inputs(W, Lq, B, seed=1, device=device, min_len=3 * Lq // 4)
     tb, best, bi, bw, bs = sw_batch.sw_dp(qs, rs, qlens, dlos, W)
+    packed, n_steps, _, _ = sw_batch.sw_traceback(tb, best, bi, bw, bs, dlos, W)
     times = {
         "sw_dp": (
             cuda_ms(lambda: sw_batch.sw_dp(qs, rs, qlens, dlos, W), reps=20),
             cuda_ms(lambda: sw_batch.sw_dp_reference(qs, rs, qlens, dlos, W), reps=2),
+            dp_bound(qlens, W)[1],
         ),
         "sw_traceback": (
             cuda_ms(lambda: sw_batch.sw_traceback(tb, best, bi, bw, bs, dlos, W), reps=20),
@@ -173,16 +267,63 @@ def check_kernels(device):
                 lambda: sw_batch.sw_traceback_reference(tb, best, bi, bw, bs, dlos, W),
                 reps=2,
             ),
+            tb_bound(packed, n_steps),
         ),
     }
     out = {}
-    for name, (ms, plain_ms) in times.items():
+    for name, (ms, plain_ms, (bound_ms, bound_by, kind)) in times.items():
+        pct = 100.0 * bound_ms / ms
         print(
             f"phase 2 time at (B={B}, Lq={Lq}, W={W}): {name} kernel {ms:.4f} ms, "
-            f"plain PyTorch {plain_ms:.4f} ms"
+            f"plain PyTorch {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({kind}), "
+            f"{pct:.1f} % of bound"
         )
-        out[name] = {"max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms}
-    return out
+        out[name] = {
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_kind": kind,
+            "roofline_pct": pct, "library_ms": None,
+        }
+    del tb, packed
+    return out, sweep_dp(device, variants)
+
+
+def sweep_dp(device, variants):
+    """sw_dp at Lq=2048, W=256 over SWEEP_B, exact against the plain
+    version at every point; each variant is held to this kernel's output
+    and timed beside it, in turns."""
+    from amira_tpu_torch.ops import sw_batch
+
+    W, Lq = 256, 2048
+    rows = []
+    for B in SWEEP_B:
+        qs, rs, qlens, dlos = sw_inputs(W, Lq, B, seed=1, device=device, min_len=3 * Lq // 4)
+        got = sw_batch.sw_dp(qs, rs, qlens, dlos, W)
+        err = dp_diff(got, sw_batch.sw_dp_reference(qs, rs, qlens, dlos, W), qlens)
+        if err:
+            fail(f"sw_dp differs from its plain version at B={B} (max_abs_err {err})")
+        calls = {label: (lambda lib=lib: dp_with(lib, qs, rs, qlens, dlos, W)) for label, lib in variants}
+        for label, call in calls.items():
+            verr = dp_diff(call(), got, qlens)
+            if verr:
+                fail(f"{label} differs from this sw_dp at B={B} (max_abs_err {verr})")
+        del got
+        calls["sw_dp"] = lambda: sw_batch.sw_dp(qs, rs, qlens, dlos, W)
+        order = list(calls)
+        runs = {label: [] for label in order}
+        for label in order + order[::-1]:
+            runs[label].append(cuda_ms(calls[label], reps=10))
+        cells, (bound_ms, _, kind) = dp_bound(qlens, W)
+        row = {"B": B, "Lq": Lq, "W": W, "cells": cells, "bound_ms": bound_ms, "max_abs_err": err}
+        for label, ms in runs.items():
+            mean = sum(ms) / len(ms)
+            row[label] = {"ms": ms, "gcells": cells / mean / 1e6, "roofline_pct": 100.0 * bound_ms / mean}
+            print(
+                f"phase 2 sweep (B={B}, Lq={Lq}, W={W}, {cells} live cells): {label} "
+                f"{' / '.join(f'{m:.4f}' for m in ms)} ms, {cells / mean / 1e6:.1f} Gcell/s, "
+                f"{100.0 * bound_ms / mean:.1f} % of its {bound_ms:.4f} ms bound ({kind})"
+            )
+        rows.append(row)
+    return rows
 
 
 def cli_args(files, outdir, device):
@@ -261,6 +402,7 @@ def run_main_path(n_reads, device):
     for counts in (sw_batch.LAUNCHES, graph_tables.DEVICE_RUNS, kmer.DENSE_TABLES):
         for key in counts:
             counts[key] = 0
+    sw_batch.DP_SHAPES.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -268,6 +410,7 @@ def run_main_path(n_reads, device):
     torch.cuda.synchronize()
     wall_s = time.time() - t0
     launches = dict(sw_batch.LAUNCHES)
+    dp_shapes = list(sw_batch.DP_SHAPES)
     peak = torch.cuda.max_memory_allocated()
     with open(os.path.join(out, "phase_timings.json")) as f:
         phases = json.load(f)
@@ -278,6 +421,7 @@ def run_main_path(n_reads, device):
         f"{peak} bytes ({peak / 2**30:.2f} GiB), launches {launches}, "
         f"window-hash runs {graph_tables.DEVICE_RUNS}, dense tables {kmer.DENSE_TABLES}"
     )
+    print(f"phase 4 sw_dp launch shapes (B, Lq): {dp_shapes}")
     with open(os.path.join(out, "amira_results.tsv")) as f:
         rows = list(csv.DictReader(f, delimiter="\t"))
     for r in rows:
@@ -307,6 +451,7 @@ def run_main_path(n_reads, device):
         "wall_seconds": wall_s,
         "peak_device_memory_bytes": peak,
         "launches": launches,
+        "dp_shapes": dp_shapes,
         "window_hash_runs": dict(graph_tables.DEVICE_RUNS),
         "dense_tables": dict(kmer.DENSE_TABLES),
         "phases": phases,
@@ -317,6 +462,15 @@ def run_main_path(n_reads, device):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reads", type=int, default=50_000, help="reads of the phase-4 isolate")
+    ap.add_argument("--kernels-only", action="store_true", help="stop after phase 2")
+    ap.add_argument(
+        "--baseline-dp", metavar="SRC",
+        help="another sw_batch.cu whose sw_dp the sweep times beside this one",
+    )
+    ap.add_argument(
+        "--dp-warps", default="",
+        help="comma-separated warps per block of extra sw_dp builds for the sweep",
+    )
     args = ap.parse_args()
 
     import torch
@@ -336,8 +490,26 @@ def main():
     t0 = time.time()
     lib = sw_batch.build()
     print(f"phase 1 build: {os.path.relpath(lib, ROOT)} in {time.time() - t0:.2f} s")
+    with open(lib[: -len(".so")] + "_ptxas.txt") as f:
+        for line in f:
+            if "Used" in line or "spill" in line:
+                print(f"phase 1 ptxas: {line.strip()}")
+    variants = []
+    builds = os.path.join(ROOT, "chip_work", "variants")
+    if args.baseline_dp:
+        so = sw_batch.compile_library(os.path.abspath(args.baseline_dp), out_dir=builds)
+        variants.append(("baseline sw_dp", sw_batch.load_library(so)))
+    for n in filter(None, args.dp_warps.split(",")):
+        so = sw_batch.compile_library(defines=[f"SW_DP_WARPS={int(n)}"], out_dir=builds)
+        variants.append((f"sw_dp {n} warps/block", sw_batch.load_library(so)))
 
-    timings = check_kernels(device)
+    timings, sweep = check_kernels(device, variants)
+    if args.kernels_only:
+        os.makedirs(os.path.dirname(SUMMARY), exist_ok=True)
+        with open(SUMMARY, "w") as f:
+            json.dump({"card": card, "kernels": timings, "sweep": sweep}, f, indent=1)
+        print("kernels only: phases 3 and 4 not run, no result line")
+        return
     check_golden(device)
     summary = run_main_path(args.reads, device)
 
@@ -361,7 +533,9 @@ def main():
     ]
     os.makedirs(os.path.dirname(SUMMARY), exist_ok=True)
     with open(SUMMARY, "w") as f:
-        json.dump({"card": card, "kernels": kernels, "main_path": summary}, f, indent=1)
+        json.dump(
+            {"card": card, "kernels": kernels, "sweep": sweep, "main_path": summary}, f, indent=1
+        )
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
@@ -369,7 +543,7 @@ def main():
         "device": {
             "platform": "gpu",
             "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count(),
+            "count": 1,
         },
     }))
 

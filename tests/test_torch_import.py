@@ -6,6 +6,7 @@ their plain versions only for CPU tensors.
 Tolerance: zero; every comparison is exact (integers and strings).
 """
 
+import inspect
 import os
 import re
 import subprocess
@@ -162,6 +163,45 @@ def _small_batch(device, W=64, lq=96, B=6, seed=5):
     return [torch.from_numpy(a).to(device) for a in (qs, rs, qlens, dlos)]
 
 
+def _device_taking_entry_points():
+    from amira_tpu_torch import graph_cache, preprocess, results
+    from amira_tpu_torch.ops import consensus, kmer
+
+    return [
+        port_align.Aligner.__init__, kmer.KmerCounter.from_sequences,
+        kmer.estimate_overall_read_depth, graph_cache.GraphBuildCache.__init__,
+        results.get_closest_allele_from_polished, results.compare_reads_to_references,
+        results.get_alleles, results.estimate_copy_numbers, consensus.polish_once,
+        consensus.polish, preprocess.remove_poorly_mapped_genes,
+        preprocess.convert_pandora_output,
+    ]
+
+
+@pytest.mark.parametrize("index", range(12))
+def test_device_is_a_required_argument(index):
+    fn = _device_taking_entry_points()[index]
+    param = inspect.signature(fn).parameters["device"]
+    assert param.default is inspect.Parameter.empty, fn.__qualname__
+
+
+def test_polish_aligns_on_the_given_device(monkeypatch):
+    from amira_tpu_torch.ops import consensus
+
+    seen = []
+
+    class Recording(consensus.Aligner):
+        def __init__(self, *args, device, **kwargs):
+            seen.append(device)
+            super().__init__(*args, device=device, **kwargs)
+
+    monkeypatch.setattr(consensus, "Aligner", Recording)
+    rng = np.random.RandomState(2)
+    draft = "".join(rng.choice(list("ACGT"), size=300))
+    reads = {f"r{i}": draft[i * 10 : i * 10 + 200] for i in range(6)}
+    assert consensus.polish(draft, reads, iterations=2, band_width=64, device="cpu") == draft
+    assert seen and set(seen) == {"cpu"}
+
+
 def test_cpu_tensors_take_the_plain_version():
     before = dict(sw_batch.LAUNCHES)
     args = _small_batch("cpu")
@@ -182,11 +222,12 @@ def test_wrappers_refuse_other_devices():
 
 
 @pytest.mark.cuda
-def test_sw_cigar_kernels_match_plain_version_on_gpu(cuda_device):
-    args = _small_batch(cuda_device, W=128, lq=256, B=40)
+@pytest.mark.parametrize("W,lq,B", [(128, 256, 40), (256, 192, 37)])
+def test_sw_cigar_kernels_match_plain_version_on_gpu(W, lq, B, cuda_device):
+    args = _small_batch(cuda_device, W=W, lq=lq, B=B)
     before = dict(sw_batch.LAUNCHES)
-    got = sw_batch.sw_cigar(*args, 128)
-    ref = sw_batch.sw_cigar_reference(*args, 128)
+    got = sw_batch.sw_cigar(*args, W)
+    ref = sw_batch.sw_cigar_reference(*args, W)
     torch.cuda.synchronize()
     for a, b in zip(got, ref):
         assert torch.equal(a, b)

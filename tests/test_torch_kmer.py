@@ -59,7 +59,10 @@ def _dense(seqs, k, min_count=0):
 def test_counts_histogram_and_queries_match_reference(k, counter):
     seqs = _seqs(seed=k, repeats=30)
     ref = jax_kmer.KmerCounter.from_sequences(seqs, k)
-    got = _dense(seqs, k) if counter == "dense" else kmer.KmerCounter.from_sequences(seqs, k)
+    if counter == "dense":
+        got = _dense(seqs, k)
+    else:
+        got = kmer.KmerCounter.from_sequences(seqs, k, device="cpu")
     assert (got.dense is not None) == (counter == "dense")
     histo = got.histo()
     assert histo == ref.histo()
@@ -110,11 +113,11 @@ def test_overall_read_depth_matches_reference(k, counter, tmp_path, monkeypatch)
         monkeypatch.setattr(
             kmer.KmerCounter, "from_sequences",
             classmethod(
-                lambda cls, s, k, min_count=0, device="cpu":
+                lambda cls, s, k, min_count=0, *, device:
                 cls._from_seqs_dense(s, k, min_count, "cpu")
             ),
         )
-    depth, got = kmer.estimate_overall_read_depth(seqs, k, "cpu")
+    depth, got = kmer.estimate_overall_read_depth(seqs, k, device="cpu")
     assert (got.dense is not None) == (counter == "dense")
     assert depth == ref_depth
     assert got.histo() == ref_counter.histo()

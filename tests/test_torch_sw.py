@@ -9,6 +9,12 @@ strongly negative band diagonals, unrelated pairs and padded lanes. The
 port's Aligner returns the same Alignments as the JAX Aligner under the XLA
 engine. On a CUDA device, the kernels are held to the plain versions.
 
+The CUDA DP cannot run here, so a NumPy model of how it computes (one warp
+per job, lane l holding band lanes l*S .. l*S+S-1) is held to the plain
+version: the deletion recurrence as strips joined by a warp scan, the row
+maximum as one reduction over packed keys, and a whole row step that carries
+the row-state chain into the next row's diagonal move.
+
 Tolerance: zero; scores, endpoints, packed ops and CIGARs are exact.
 """
 
@@ -21,6 +27,15 @@ from amira_tpu.ops.align import _batched_sw_cigar, _unpack_cigar
 from amira_tpu.ops.align import _bucket as jax_bucket
 from amira_tpu.ops.pallas_sw_batch import pallas_sw_cigar
 from amira_tpu_torch.ops import sw_batch
+from amira_tpu_torch.ops.align import (
+    GAP_EXT,
+    GAP_EXT2,
+    GAP_OPEN,
+    GAP_OPEN2,
+    MATCH,
+    MISMATCH,
+    NEG,
+)
 from amira_tpu_torch.ops.align import Aligner as PortAligner
 from amira_tpu_torch.ops.align import _bucket as port_bucket
 
@@ -83,6 +98,190 @@ def _batch(W, lq, B, seed=7, n_padded=0):
 
 def _torch(arrays, device="cpu"):
     return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+def _edge_batch(W, lq, B, seed=5):
+    """_batch with the kernel's edge cases planted: padded jobs (qlen 0),
+    qlen 1 and qlen < W/32, and strongly negative band diagonals."""
+    qs, rs, qlens, dlos = _batch(W, lq, B - 3, seed=seed, n_padded=3)
+    qlens[0], qlens[1], qlens[2] = 1, W // 32 - 1, 3
+    dlos[3], dlos[4] = -(lq - 1), -(lq - W // 2)
+    return qs, rs, qlens, dlos
+
+
+# ------------------------------------------- NumPy model of the CUDA DP
+
+
+def _strip_deletions(Mc, gap_open, gap_ext):
+    """The kernel's deletion recurrence on rows of masked M (R, W). Each
+    lane l holds band lanes l*S .. l*S+S-1: its running max of M + s*ext
+    gives each element's candidate from earlier elements of the strip (t),
+    and the strip maximum of M + w*ext goes into a 5-step shuffle-up max
+    scan over the 32 lanes (lanes below the offset keep their own value),
+    whose exclusive result is the carry from earlier lanes. Then
+    D = max(carry - open - (w-1)*ext, t), clamped to NEG. Returns
+    (D, extend flags D[w-1] - ext >= M[w-1] - open)."""
+    R, W = Mc.shape
+    S = W // 32
+    M = Mc.reshape(R, 32, S).astype(np.int64)
+    lane, s_idx = np.arange(32), np.arange(S)
+    pre = np.maximum.accumulate(M + s_idx * gap_ext, axis=2)
+    t = np.full_like(M, NEG)
+    t[:, :, 1:] = np.maximum(pre[:, :, :-1] - gap_open - (s_idx[1:] - 1) * gap_ext, NEG)
+    a = pre[:, :, -1] + lane * S * gap_ext
+    off = 1
+    while off < 32:
+        a = np.maximum(a, np.concatenate([a[:, :off], a[:, :-off]], axis=1))
+        off *= 2
+    ea = np.concatenate([np.full((R, 1), NEG), a[:, :-1]], axis=1)
+    x0 = ea - gap_open - (lane * S - 1) * gap_ext
+    D = np.maximum(x0[:, :, None] - s_idx * gap_ext, t)
+    ext = np.empty(M.shape, bool)
+    ext[:, :, 1:] = D[:, :, :-1] - gap_ext >= M[:, :, :-1] - gap_open
+    # element 0 compares against lane l-1's element S-1 (NEG left of lane 0)
+    d_left = np.concatenate([np.full((R, 1), NEG), D[:, :-1, S - 1]], axis=1)
+    m_left = np.concatenate([np.full((R, 1), NEG), M[:, :-1, S - 1]], axis=1)
+    ext[:, :, 0] = d_left - gap_ext >= m_left - gap_open
+    return D.reshape(R, W), ext.reshape(R, W)
+
+
+def _val_shift(W):
+    """Bit position of the score in the kernel's cell codes."""
+    return W.bit_length() - 1 + 3
+
+
+def _encode(x, prio, W):
+    """The kernel's code of one cell component: max(x, 0) << (log2 W + 3) |
+    priority (M 6, I 5, D 4, I2 3, D2 2)."""
+    return (np.maximum(np.asarray(x, np.int64), 0) << _val_shift(W)) | prio
+
+
+def _reduce_keys(keys):
+    """The kernel's row maximum over cell keys (R, W) (code plus lane bits
+    (W-1-w) << 3): the max over each lane's strip, then over the warp,
+    decoded to (score, lane, state)."""
+    R, W = keys.shape
+    assert int(keys.max()) < 1 << 32
+    rk = keys.reshape(R, 32, W // 32).max(axis=2).max(axis=1)
+    return rk >> _val_shift(W), W - 1 - ((rk >> 3) & (W - 1)), 6 - (rk & 7)
+
+
+def _lane_bits(W):
+    return (W - 1 - np.arange(W, dtype=np.int64)) << 3
+
+
+def _kernel_model(qs, rs, qlens, dlos, W):
+    """sw_dp as the kernel computes it, job by job. The encoded row state of
+    row i (score and state of the first component, in M, I, D, I2, D2 order,
+    holding the cell's maximum) is the diagonal input of row i+1; the
+    insertions read M - OPEN and I - EXT (and the I2 pair) carried from lane
+    w+1 of the previous row; deletions and the row maximum as above. Rows
+    at or past qlen stay 0."""
+    B, Lq = qs.shape
+    Lr = rs.shape[1]
+    w = np.arange(W)
+    pos = 1 << _val_shift(W)
+    tb = np.zeros((B, Lq, W), np.uint8)
+    out = np.zeros((4, B), np.int64)
+    out[1:3] = -1
+
+    def up(x, edge):  # band lane w+1 of the previous row
+        return np.append(x[1:], edge)
+
+    for b in range(B):
+        e = np.zeros(W, np.int64)
+        mo, mo2 = np.full(W, -GAP_OPEN), np.full(W, -GAP_OPEN2)
+        ie, i2e = np.full(W, NEG - GAP_EXT), np.full(W, NEG - GAP_EXT2)
+        for i in range(min(max(int(qlens[b]), 0), Lq)):
+            ri = int(dlos[b]) + W + Lq + i + w
+            rc = np.where((ri >= 0) & (ri < Lr), rs[b, np.clip(ri, 0, Lr - 1)], 4)
+            in_ref, eq = rc != 4, rc == qs[b, i]
+            # max(prev_best, 0) + score
+            mdiag = (e >> _val_shift(W)) + np.where(eq, MATCH, MISMATCH)
+            m_bits = np.where((e >= pos) & (mdiag > 0), ~e & 7, 0)
+            Mc = np.where(in_ref, np.maximum(mdiag, 0), NEG)
+            mou, mo2u = up(mo, NEG - GAP_OPEN), up(mo2, NEG - GAP_OPEN2)
+            ieu, i2eu = up(ie, NEG - GAP_EXT), up(i2e, NEG - GAP_EXT2)
+            Iv, I2v = np.maximum(ieu, mou), np.maximum(i2eu, mo2u)
+            D, d_ext = _strip_deletions(Mc[None], GAP_OPEN, GAP_EXT)
+            D2, d2_ext = _strip_deletions(Mc[None], GAP_OPEN2, GAP_EXT2)
+            tb[b, i] = (
+                m_bits | (ieu >= mou) << 3 | d_ext[0] << 4 | (i2eu >= mo2u) << 5
+                | d2_ext[0] << 6 | eq << 7
+            )
+            codes = [_encode(x, p, W) for x, p in ((Mc, 6), (Iv, 5), (D[0], 4), (I2v, 3), (D2[0], 2))]
+            e = np.where(in_ref, np.max(codes, axis=0) + _lane_bits(W), 0)
+            rv, rw, st = (x[0] for x in _reduce_keys(e[None]))
+            if rv > out[0, b]:
+                out[:, b] = rv, i, rw, st
+            mo, mo2 = Mc - GAP_OPEN, Mc - GAP_OPEN2
+            ie = np.where(in_ref, Iv - GAP_EXT, NEG - GAP_EXT)
+            i2e = np.where(in_ref, I2v - GAP_EXT2, NEG - GAP_EXT2)
+    return tb, out
+
+
+def _masked_m_rows(rng, R, W):
+    """Rows of masked M: scores 0..60 with NEG (out-of-reference) lanes in
+    runs at either edge and scattered, some rows all NEG or all 0."""
+    M = rng.randint(0, 61, size=(R, W)).astype(np.int32)
+    M[rng.rand(R, W) < 0.1] = NEG
+    for r in range(R):
+        cut = rng.randint(0, W + 1)
+        if r % 3 == 0:
+            M[r, :cut] = NEG
+        elif r % 3 == 1:
+            M[r, cut:] = NEG
+    M[0], M[1] = NEG, 0
+    return M
+
+
+@pytest.mark.parametrize("W", [64, 128, 256])
+def test_strip_scan_deletions_match_cummax(W):
+    M = _masked_m_rows(np.random.RandomState(W), 300, W)
+    for gap_open, gap_ext in ((GAP_OPEN, GAP_EXT), (GAP_OPEN2, GAP_EXT2)):
+        ref_d, ref_ext = sw_batch.deletions(torch.from_numpy(M), gap_open, gap_ext)
+        got_d, got_ext = _strip_deletions(M, gap_open, gap_ext)
+        np.testing.assert_array_equal(got_d, ref_d.numpy())
+        np.testing.assert_array_equal(got_ext, ref_ext.numpy())
+        # the same values as the sequential recurrence on the unmasked D
+        seq = np.maximum(np.maximum(got_d[:, :-1] - gap_ext, M[:, :-1] - gap_open), NEG)
+        np.testing.assert_array_equal(got_d[:, 1:], seq)
+        assert (ref_d.numpy() == NEG).any() and (ref_d.numpy() > NEG).any()
+
+
+@pytest.mark.parametrize("W", [64, 128, 256])
+def test_packed_key_row_max_matches_first_lane(W):
+    rng = np.random.RandomState(W + 1)
+    R = 400
+    vals = rng.randint(-8, 12, size=(R, W)).astype(np.int32)
+    vals[rng.rand(R, W) < 0.1] = NEG
+    for r in range(0, R, 2):  # plant ties of the row maximum
+        top = int(vals[r].max()) + rng.randint(0, 3)
+        vals[r, rng.choice(W, size=rng.randint(2, 6), replace=False)] = top
+    vals[-1] = NEG
+    vals[-2] = 0
+    states = rng.randint(0, 5, size=(R, W))
+    rv, rw, st = _reduce_keys(_encode(vals, 6 - states, W) + _lane_bits(W))
+    ref_v, ref_w = torch.from_numpy(vals).max(dim=1)
+    ref_v, ref_w = ref_v.numpy(), ref_w.numpy()
+    pos = ref_v > 0
+    assert pos.sum() > R // 2 and (~pos).any()
+    np.testing.assert_array_equal(rv[pos], ref_v[pos])
+    np.testing.assert_array_equal(rw[pos], ref_w[pos])
+    np.testing.assert_array_equal(st[pos], states[pos, ref_w[pos]])
+    # a row whose maximum is <= 0 decodes to <= 0 and can never raise the best
+    assert (rv[~pos] <= 0).all()
+
+
+@pytest.mark.parametrize("W,lq,B", [(64, 128, 24), (128, 256, 9), (256, 192, 37)])
+def test_kernel_model_matches_plain_version(W, lq, B):
+    arrays = _edge_batch(W, lq, B)
+    tb, out = _kernel_model(*arrays, W)
+    r_tb, *r_out = sw_batch.sw_dp_reference(*_torch(arrays), W)
+    np.testing.assert_array_equal(out, np.stack([t.numpy() for t in r_out]))
+    live = np.arange(lq)[None, :] < arrays[2][:, None]
+    np.testing.assert_array_equal(tb[live], r_tb.numpy()[live])
+    assert (out[0] > 0).sum() >= B // 2
 
 
 @pytest.mark.parametrize("W,lq,B", [(64, 128, 24), (128, 256, 9)])
@@ -178,9 +377,11 @@ def test_aligner_map_reads_and_diagonals_match_jax(monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("W,lq,B", [(64, 128, 24), (128, 256, 9), (256, 1024, 96)])
+@pytest.mark.parametrize(
+    "W,lq,B", [(64, 128, 24), (128, 256, 9), (256, 192, 37), (256, 1024, 96)]
+)
 def test_kernels_match_plain_version_on_gpu(W, lq, B, cuda_device):
-    arrays = _torch(_batch(W, lq, B, n_padded=3), cuda_device)
+    arrays = _torch(_edge_batch(W, lq, B), cuda_device)
     tb, best, bi, bw, bs = sw_batch.sw_dp(*arrays, W)
     ref_dp = sw_batch.sw_dp_reference(*arrays, W)
     for a, b in zip((best, bi, bw, bs), ref_dp[1:]):
