@@ -23,8 +23,9 @@
 //   the first (lowest) lane with the row maximum.
 //
 // sw_dp design: one warp per job, no block barrier and no shared memory.
-//   * A block holds SW_DP_WARPS independent warps (default 4, the fastest of
-//     1, 2 and 4 at the aligner's B = 512 on an H100; PERF.md). Lane l owns
+//   * A block holds kDpWarps = 4 independent warps, the fastest of 1, 2 and
+//     4 on an H100 at the main path's large launches, (B, Lq) = (980, 1024)
+//     and (490, 1024), and at B = 128..2048, Lq = 2048 (PERF.md). Lane l owns
 //     the strip of band lanes w = l*S + s, s < S = W/32 (W = 64, 128, 256),
 //     and keeps its previous-row state in registers. The row loop stops at
 //     the job's query length: rows past it are dead (all-NEG) in the
@@ -64,18 +65,19 @@
 //     writes one coalesced W-byte row of the (B, Lq, W) uint8 layout.
 //
 // What bounds sw_dp on this card: at (B, Lq, W) = (512, 2048, 256) with
-// query lengths 1536-2048 it has 233,189,120 live cells. Writing one
-// traceback byte per cell is 0.070 ms at 3.35 TB/s; the recurrence is 50
-// int32 operations per cell counted from this source (a DPX operation as
-// one; chip_smoke.py SW_DP_OPS_PER_CELL), 0.70 ms at 132 SMs x 64 int32
-// lanes x 1.98 GHz. So it is bound by integer issue; ptxas emits about 73
-// instructions per cell (a max with its predicate is a compare and a
-// select), nearly all on the integer pipe. Against the earlier block-per-job
-// kernel (thread = band lane) this design removes the three __syncthreads
-// per row, the shared-memory round trips for neighbouring lanes, the
-// per-cell scan and the warp-total pass (the scan now runs once per strip),
-// and the second pass of the state chain (shared by the row state and the
-// next row's diagonal).
+// query lengths 1536-2048 it has about 233 M live cells. Writing one
+// traceback byte per cell is 0.070 ms at 3.35 TB/s; the recurrence needs 39
+// int32 operations per cell, counted from the plain version with a DPX
+// operation as one (chip_smoke.py SW_DP_OPS_PER_CELL), 0.54 ms at 132 SMs x
+// 64 int32 lanes x 1.98 GHz. So it is bound by integer issue. This kernel
+// issues more: its row-state codes cost about 16 operations per cell, and
+// ptxas emits about 73 instructions per cell (a max with its predicate is a
+// compare and a select), nearly all on the integer pipe. Against the earlier
+// block-per-job kernel (thread = band lane) this design removes the three
+// __syncthreads per row, the shared-memory round trips for neighbouring
+// lanes, the per-cell scan and the warp-total pass (the scan now runs once
+// per strip), and the second pass of the state chain (shared by the row
+// state and the next row's diagonal).
 //
 // sw_traceback: one thread per job walks its traceback bytes from the best
 // cell, emitting =/X/I/D as 2-bit codes packed 4 per byte in step order
@@ -88,10 +90,6 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#ifndef SW_DP_WARPS
-#define SW_DP_WARPS 4  // jobs (warps) per block of sw_dp
-#endif
-
 namespace {
 
 constexpr int kNeg = -(1 << 28);
@@ -102,6 +100,7 @@ constexpr int kGapExt = 2;
 constexpr int kGapOpen2 = 25;
 constexpr int kGapExt2 = 1;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kDpWarps = 4;  // jobs (warps) per block of sw_dp
 
 constexpr int kOpEq = 0;
 constexpr int kOpX = 1;
@@ -122,7 +121,7 @@ __device__ __forceinline__ unsigned enc(int x, unsigned prio) {
 }
 
 template <int S>
-__global__ void __launch_bounds__(SW_DP_WARPS * 32)
+__global__ void __launch_bounds__(kDpWarps * 32)
     sw_dp_kernel(const uint8_t* __restrict__ qs, const uint8_t* __restrict__ rs,
                  const int32_t* __restrict__ qlens,
                  const int32_t* __restrict__ dlos, int B, int Lq, int Lr,
@@ -134,7 +133,7 @@ __global__ void __launch_bounds__(SW_DP_WARPS * 32)
   constexpr unsigned kPos = 1u << kVal;  // encoded cells >= kPos score > 0
 
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * SW_DP_WARPS + (threadIdx.x >> 5);
+  const int b = blockIdx.x * kDpWarps + (threadIdx.x >> 5);
   if (b >= B) return;  // a ragged last block's spare warps
   const int qlen = min(max(qlens[b], 0), Lq);
   const int dlo = dlos[b];
@@ -393,8 +392,8 @@ extern "C" {
 int sw_dp_launch(const void* qs, const void* rs, const void* qlens,
                  const void* dlos, int B, int Lq, int Lr, int W, void* tb,
                  void* best, void* bi, void* bw, void* bs, void* stream) {
-  const int blocks = (B + SW_DP_WARPS - 1) / SW_DP_WARPS;
-  const dim3 threads(SW_DP_WARPS * 32);
+  const int blocks = (B + kDpWarps - 1) / kDpWarps;
+  const dim3 threads(kDpWarps * 32);
   cudaStream_t st = (cudaStream_t)stream;
   const uint8_t* q = (const uint8_t*)qs;
   const uint8_t* r = (const uint8_t*)rs;

@@ -21,11 +21,12 @@ Beside each kernel is its plain PyTorch version (`sw_dp_reference`,
 with `torch.cummax` for the deletion recurrences, and a vectorised walk. The
 wrappers use the plain versions only for tensors on the CPU; for CUDA
 tensors they launch the kernels or raise. `LAUNCHES` counts kernel launches
-and `DP_SHAPES` lists the (B, Lq) of each sw_dp launch.
+and `DP_SHAPES` counts sw_dp launches by (B, Lq).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -48,9 +49,9 @@ from .align import (
 _SRC = os.path.join(PACKAGE_DIR, "csrc", "sw_batch.cu")
 
 # kernel launches by the wrappers below (never by the plain versions), and
-# the (B, Lq) of each sw_dp launch
+# sw_dp launches by (B, Lq)
 LAUNCHES = {"sw_dp": 0, "sw_traceback": 0}
-DP_SHAPES: list = []
+DP_SHAPES: collections.Counter = collections.Counter()
 
 # band widths the DP kernel is instantiated for (W = 32 * S band lanes, S per
 # thread of a warp)
@@ -83,21 +84,22 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def compile_library(src: str = _SRC, defines=(), out_dir: str = BUILD_DIR) -> str:
-    """Compile a source with sw_batch.cu's C interface into out_dir (once
-    per source content and -D defines); returns the library path, with
-    ptxas's report beside it (`*_ptxas.txt`). Raises with nvcc's output on
-    failure."""
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + repr(tuple(defines)).encode()).hexdigest()[:12]
-    so = os.path.join(out_dir, f"libsw_batch_{digest}.so")
+def build() -> str:
+    """Compile csrc/sw_batch.cu (once per source content) and load it;
+    returns the library path. Raises with nvcc's output on failure."""
+    global _lib
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha1(f.read()).hexdigest()[:12]
+    so = os.path.join(BUILD_DIR, f"libsw_batch_{digest}.so")
+    if _lib is not None and _lib._name == so:
+        return so
     if not os.path.exists(so):
-        os.makedirs(out_dir, exist_ok=True)
+        os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
         cmd = [
             _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
             "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            *(f"-D{d}" for d in defines), "-o", tmp, src,
+            "-o", tmp, _SRC,
         ]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -105,29 +107,15 @@ def compile_library(src: str = _SRC, defines=(), out_dir: str = BUILD_DIR) -> st
                 f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
             )
         os.replace(tmp, so)
-        with open(so[: -len(".so")] + "_ptxas.txt", "w") as f:
+        with open(os.path.join(BUILD_DIR, "sw_batch_ptxas.txt"), "w") as f:
             f.write(proc.stderr)
-    return so
-
-
-def load_library(so: str) -> ctypes.CDLL:
-    """Load a library built by compile_library, with its C signatures."""
     lib = ctypes.CDLL(so)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.sw_dp_launch.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p, p]
     lib.sw_dp_launch.restype = ctypes.c_int
     lib.sw_traceback_launch.argtypes = [p] * 6 + [i, i, i, i] + [p] * 5
     lib.sw_traceback_launch.restype = ctypes.c_int
-    return lib
-
-
-def build() -> str:
-    """Compile csrc/sw_batch.cu (once per source content) and load it for
-    the wrappers; returns the library path."""
-    global _lib
-    so = compile_library()
-    if _lib is None or _lib._name != so:
-        _lib = load_library(so)
+    _lib = lib
     return so
 
 
@@ -189,7 +177,7 @@ def sw_dp(qs, rs, qlens, dlos, W: int):
     )
     _raise_on(err, "sw_dp")
     LAUNCHES["sw_dp"] += 1
-    DP_SHAPES.append((B, Lq))
+    DP_SHAPES[(B, Lq)] += 1
     return tb, best, bi, bw, bs
 
 
@@ -202,24 +190,6 @@ def _first_index(cond: torch.Tensor, vals: list, default: int):
     return out
 
 
-def _shift_left(x):
-    """Band lane w-1 -> w, NEG into lane 0."""
-    return torch.cat([torch.full_like(x[:, :1], NEG), x[:, :-1]], dim=1)
-
-
-def deletions(M_cur, gap_open: int, gap_ext: int):
-    """One row's deletion recurrence over the band, as the plain version
-    computes it. M_cur (R, W) int32 is the masked M row. Returns the
-    unmasked D[w] = max_{w0<w} M[w0] - open - (w-1-w0)*ext, clamped to NEG
-    (an exclusive prefix max of M + w*ext), and the extend flags
-    D[w-1] - ext >= M[w-1] - open (both true at w = 0)."""
-    w_idx = torch.arange(M_cur.shape[1], dtype=M_cur.dtype, device=M_cur.device)[None, :]
-    A_shift = _shift_left(torch.cummax(M_cur + w_idx * gap_ext, dim=1).values)
-    D_un = torch.clamp(A_shift - gap_open - (w_idx - 1) * gap_ext, min=NEG)
-    ext = (_shift_left(D_un) - gap_ext) >= (_shift_left(M_cur) - gap_open)
-    return D_un, ext
-
-
 def sw_dp_reference(qs, rs, qlens, dlos, W: int):
     """Plain PyTorch version of sw_dp (the JAX package's
     `_banded_sw_batch_core` row for row). Works on any device."""
@@ -230,6 +200,7 @@ def sw_dp_reference(qs, rs, qlens, dlos, W: int):
     neg = torch.tensor(NEG, dtype=i32, device=dev)
     match = torch.tensor(MATCH, dtype=i32, device=dev)
     mismatch = torch.tensor(MISMATCH, dtype=i32, device=dev)
+    w_idx = torch.arange(W, dtype=i32, device=dev)[None, :]
     # per-job reference window: rsh[b, t] = rs[b, t + dlo + W + Lq]
     gidx = dlos.long()[:, None] + torch.arange(Lq + W, device=dev)[None, :] + (W + Lq)
     inb = (gidx >= 0) & (gidx < Lr)
@@ -240,6 +211,9 @@ def sw_dp_reference(qs, rs, qlens, dlos, W: int):
 
     def shift_up(x):  # lane w+1 -> w
         return torch.cat([x[:, 1:], negcol], dim=1)
+
+    def shift_left(x):  # lane w-1 -> w
+        return torch.cat([negcol, x[:, :-1]], dim=1)
 
     M = torch.zeros((B, W), dtype=i32, device=dev)
     I = torch.full((B, W), NEG, dtype=i32, device=dev)
@@ -271,10 +245,13 @@ def sw_dp_reference(qs, rs, qlens, dlos, W: int):
         i2_bits = (I2_ext >= I2_open).to(i32) << 5
         I_cur = torch.where(in_ref, torch.maximum(I_open, I_ext), neg)
         I2_cur = torch.where(in_ref, torch.maximum(I2_open, I2_ext), neg)
-        D_un, d_ext = deletions(M_cur, GAP_OPEN, GAP_EXT)
-        D2_un, d2_ext = deletions(M_cur, GAP_OPEN2, GAP_EXT2)
-        d_bits = d_ext.to(i32) << 4
-        d2_bits = d2_ext.to(i32) << 6
+        A_shift = shift_left(torch.cummax(M_cur + w_idx * GAP_EXT, dim=1).values)
+        D_un = torch.maximum(A_shift - GAP_OPEN - (w_idx - 1) * GAP_EXT, neg)
+        A2_shift = shift_left(torch.cummax(M_cur + w_idx * GAP_EXT2, dim=1).values)
+        D2_un = torch.maximum(A2_shift - GAP_OPEN2 - (w_idx - 1) * GAP_EXT2, neg)
+        M_left = shift_left(M_cur)
+        d_bits = ((shift_left(D_un) - GAP_EXT) >= (M_left - GAP_OPEN)).to(i32) << 4
+        d2_bits = ((shift_left(D2_un) - GAP_EXT2) >= (M_left - GAP_OPEN2)).to(i32) << 6
         D_cur = torch.where(in_ref, D_un, neg)
         D2_cur = torch.where(in_ref, D2_un, neg)
         live = i < qlens_c

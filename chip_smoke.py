@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (`amira_tpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--reads N] [--kernels-only] [--baseline-dp SRC]
-                          [--dp-warps 1,2,4]
+    python3 chip_smoke.py [--reads N]
 
 Run from the root of a checkout. Phases, each printing its own lines:
 
@@ -12,15 +11,12 @@ Run from the root of a checkout. Phases, each printing its own lines:
 2. Kernels against their plain PyTorch versions on the card, exactly, at
    the test shapes (the last with padded jobs, query lengths 1 and < W/32,
    strongly negative diagonals and a ragged last block) and at the
-   aligner's production shape (B=512, Lq=2048, W=256), with CUDA-event
-   times of both and each kernel's bound. Then a sweep of sw_dp at
-   Lq=2048, W=256 over B = 128, 512, 1024, 2048 (ms, Gcell/s over live
-   cells), exact against the plain version at every point.
-   --baseline-dp SRC builds another source of the same C interface (an
-   earlier sw_batch.cu) and --dp-warps builds this source with other warps
-   per block (-DSW_DP_WARPS); the sweep then times each of them on the same
-   inputs, in the order baseline, variants, this kernel, and back again,
-   and holds their outputs to this kernel's.
+   production shapes: the two large sw_dp launches of the 50k-read main
+   path, (B, Lq) = (980, 1024) and (490, 1024), and (512, 2048), all at
+   W=256, each with CUDA-event times of both and each kernel's bound. Then
+   a sweep of sw_dp at Lq=2048, W=256 over B = 128, 512, 1024, 2048 (ms,
+   Gcell/s over live cells), exact against the plain version at every
+   point.
 3. The committed golden: the CLI with --device cuda on the seed-7 isolate
    must write tests/goldens/amira_results_seed7.tsv byte for byte.
 4. The main path at a real isolate size: a 4,003-slot E. coli-like genome,
@@ -34,9 +30,10 @@ Run from the root of a checkout. Phases, each printing its own lines:
 The next-to-last lines are the card line and one JSON object describing
 each kernel; the last line is {"ok": true, "device": {...}}. Any failed
 phase exits non-zero without that line, as does a machine without CUDA.
---kernels-only stops after phase 2 and prints no result line. Data, outputs
-and a JSON summary (chip_work/chip_smoke_summary.json) go under chip_work/,
-which .gitignore lists.
+The kernels JSON line reports each kernel at the main path's largest
+launch, (B, Lq, W) = (980, 1024, 256). Data, outputs and a JSON summary
+(chip_work/chip_smoke_summary.json) go under chip_work/, which .gitignore
+lists.
 """
 
 from __future__ import annotations
@@ -55,27 +52,33 @@ WORK = os.path.join(ROOT, "chip_work", "smoke")
 SUMMARY = os.path.join(ROOT, "chip_work", "chip_smoke_summary.json")
 GOLDEN = os.path.join(ROOT, "tests", "goldens", "amira_results_seed7.tsv")
 
-# (W, Lq, B): the CPU tests' shapes and the aligner's production shape; the
-# last test shape plants the DP kernel's edge cases
+# (W, Lq, B): the CPU tests' shapes, the last planting the DP kernel's edge
+# cases; the production shapes, timed: the 50k-read main path's two large
+# sw_dp launches and the shape the earlier kernels were timed at. The kernels
+# JSON line reports MAIN_SHAPE, the main path's largest launch.
 TEST_SHAPES = [(64, 128, 24), (128, 256, 9), (256, 192, 37)]
 EDGE_SHAPE = (256, 192, 37)
-MAIN_SHAPE = (256, 2048, 512)
+PROD_SHAPES = [(256, 1024, 980), (256, 1024, 490), (256, 2048, 512)]
+MAIN_SHAPE = (256, 1024, 980)
 SWEEP_B = (128, 512, 1024, 2048)  # sw_dp at Lq=2048, W=256
 
 # Bounds. H100 SXM: HBM3 at 3.35 TB/s (NVIDIA's data sheet); int32 issue of
 # 132 SMs x 64 int32 lanes x 1.98 GHz boost clock (Hopper white paper).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# int32 operations per live cell of sw_dp, counted from the kernel's two
-# passes with a DPX operation as one: pass 1 27 (reference and match tests,
-# score, the carried score, M's predecessor bits 4, M's clamp and mask, I
-# and I2 with their carried inputs and masks 8, M - OPEN and M - OPEN2, the
-# extend, match and predecessor flags 3, the strip's deletion candidates and
-# running maxima 4); pass 2 23 (D and D2, their extend flags 5, five cell
-# codes 9, their max 4, lane bits, mask, strip key). Per-row work (shuffles,
-# the scan, the reduction, the store) is left out: the W/32 cells of a
-# strip share it.
-SW_DP_OPS_PER_CELL = 50
+# int32 operations per live cell that sw_dp's recurrence needs, counted
+# from the plain version (sw_dp_reference), not from any kernel: each
+# quantity once per cell, a DPX max with its >= predicate (or an add-max) as
+# one. Reference and match tests, the score 3; the max of the previous
+# cell's five states with its nested >= predicates 4, and the code they
+# pick 4 (the previous row's value and state, which the plain version
+# computes again as this row's diagonal input); M = max(max(prev, 0) +
+# score, 0) 1; M's predecessor code, kept where M > 0 and prev > 0, 3;
+# M - OPEN and M - OPEN2 (this row's deletions, the next row's insertions)
+# 2; I and I2, the extend candidate and the max with its flag, 2 each; D and
+# D2, the same and the NEG clamp, 3 each; the masks outside the reference
+# 5; the traceback byte's five flags 5; the row maximum at its first lane 2.
+SW_DP_OPS_PER_CELL = 39
 # int32 operations per step of sw_traceback's walk, counted from its loop
 SW_TB_OPS_PER_STEP = 20
 
@@ -186,44 +189,27 @@ def dp_diff(got, ref, qlens) -> int:
     return max_abs_diff([(got[0][live], ref[0][live])] + list(zip(got[1:], ref[1:])))
 
 
-def dp_with(lib, qs, rs, qlens, dlos, W):
-    """sw_dp through another build of a kernel with sw_dp_launch's C
-    interface. Not counted in sw_batch.LAUNCHES."""
-    import torch
-
-    B, Lq = qs.shape
-    tb = torch.empty((B, Lq, W), dtype=torch.uint8, device=qs.device)
-    outs = [torch.empty(B, dtype=torch.int32, device=qs.device) for _ in range(4)]
-    err = lib.sw_dp_launch(
-        qs.data_ptr(), rs.data_ptr(), qlens.data_ptr(), dlos.data_ptr(), B, Lq,
-        rs.shape[1], W, tb.data_ptr(), *(o.data_ptr() for o in outs),
-        torch.cuda.current_stream().cuda_stream,
-    )
-    if err:
-        fail(f"sw_dp of another build: CUDA error {err}")
-    return (tb, *outs)
-
-
-def check_kernels(device, variants=()):
-    """Phase 2: each kernel against its plain version on the same inputs,
-    then the sw_dp sweep, timing `variants` ([(label, library)]) beside it.
-    Returns ({kernel name: its JSON fields measured here}, sweep rows)."""
-    import torch
-
+def check_kernels(device):
+    """Phase 2: each kernel against its plain version on the same inputs at
+    every shape, timed at PROD_SHAPES; then the sw_dp sweep. Returns
+    ({(W, Lq, B): {kernel name: its JSON fields measured there}}, sweep
+    rows)."""
     from amira_tpu_torch.ops import sw_batch
     from amira_tpu_torch.ops.align import _unpack_cigar
 
     errs = {"sw_dp": 0, "sw_traceback": 0}
-    for W, Lq, B in TEST_SHAPES + [MAIN_SHAPE]:
-        min_len = 3 * Lq // 4 if (W, Lq, B) == MAIN_SHAPE else 8
+    timed = {}
+    for W, Lq, B in TEST_SHAPES + PROD_SHAPES:
+        prod = (W, Lq, B) in PROD_SHAPES
         qs, rs, qlens, dlos = sw_inputs(
-            W, Lq, B, seed=Lq + B, device=device, min_len=min_len,
+            W, Lq, B, seed=Lq + B, device=device, min_len=3 * Lq // 4 if prod else 8,
             edges=(W, Lq, B) == EDGE_SHAPE,
         )
         tb, best, bi, bw, bs = sw_batch.sw_dp(qs, rs, qlens, dlos, W)
         r_tb, r_best, r_bi, r_bw, r_bs = sw_batch.sw_dp_reference(qs, rs, qlens, dlos, W)
         # traceback rows at or past a job's query length are unspecified
         dp_err = dp_diff((tb, best, bi, bw, bs), (r_tb, r_best, r_bi, r_bw, r_bs), qlens)
+        del r_tb
         tb_out = sw_batch.sw_traceback(tb, best, bi, bw, bs, dlos, W)
         r_tb_out = sw_batch.sw_traceback_reference(tb, best, bi, bw, bs, dlos, W)
         tb_err = max_abs_diff(list(zip(tb_out, r_tb_out)))
@@ -250,10 +236,22 @@ def check_kernels(device, variants=()):
             fail(f"too few aligned jobs ({mapped}) at {(W, Lq, B)}")
         errs["sw_dp"] = max(errs["sw_dp"], dp_err, fused_err)
         errs["sw_traceback"] = max(errs["sw_traceback"], tb_err, fused_err)
+        del fused, r_fused, tb_out, r_tb_out
+        if prod:
+            timed[(W, Lq, B)] = time_kernels(qs, rs, qlens, dlos, W, tb, best, bi, bw, bs)
+        del tb
+    for fields in timed.values():
+        for name, f in fields.items():
+            f["max_abs_err"] = errs[name]
+    return timed, sweep_dp(device)
 
-    W, Lq, B = MAIN_SHAPE
-    qs, rs, qlens, dlos = sw_inputs(W, Lq, B, seed=1, device=device, min_len=3 * Lq // 4)
-    tb, best, bi, bw, bs = sw_batch.sw_dp(qs, rs, qlens, dlos, W)
+
+def time_kernels(qs, rs, qlens, dlos, W, tb, best, bi, bw, bs):
+    """CUDA-event times of both kernels and their plain versions on one
+    batch, with each kernel's bound; prints one line per kernel."""
+    from amira_tpu_torch.ops import sw_batch
+
+    B, Lq = qs.shape
     packed, n_steps, _, _ = sw_batch.sw_traceback(tb, best, bi, bw, bs, dlos, W)
     times = {
         "sw_dp": (
@@ -279,50 +277,41 @@ def check_kernels(device, variants=()):
             f"{pct:.1f} % of bound"
         )
         out[name] = {
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "shape": {"B": B, "Lq": Lq, "W": W}, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bound_kind": kind,
             "roofline_pct": pct, "library_ms": None,
         }
-    del tb, packed
-    return out, sweep_dp(device, variants)
+    return out
 
 
-def sweep_dp(device, variants):
+def sweep_dp(device):
     """sw_dp at Lq=2048, W=256 over SWEEP_B, exact against the plain
-    version at every point; each variant is held to this kernel's output
-    and timed beside it, in turns."""
+    version at every point; two passes of 10 launches each."""
     from amira_tpu_torch.ops import sw_batch
 
     W, Lq = 256, 2048
     rows = []
     for B in SWEEP_B:
         qs, rs, qlens, dlos = sw_inputs(W, Lq, B, seed=1, device=device, min_len=3 * Lq // 4)
-        got = sw_batch.sw_dp(qs, rs, qlens, dlos, W)
-        err = dp_diff(got, sw_batch.sw_dp_reference(qs, rs, qlens, dlos, W), qlens)
+        err = dp_diff(
+            sw_batch.sw_dp(qs, rs, qlens, dlos, W),
+            sw_batch.sw_dp_reference(qs, rs, qlens, dlos, W), qlens,
+        )
         if err:
             fail(f"sw_dp differs from its plain version at B={B} (max_abs_err {err})")
-        calls = {label: (lambda lib=lib: dp_with(lib, qs, rs, qlens, dlos, W)) for label, lib in variants}
-        for label, call in calls.items():
-            verr = dp_diff(call(), got, qlens)
-            if verr:
-                fail(f"{label} differs from this sw_dp at B={B} (max_abs_err {verr})")
-        del got
-        calls["sw_dp"] = lambda: sw_batch.sw_dp(qs, rs, qlens, dlos, W)
-        order = list(calls)
-        runs = {label: [] for label in order}
-        for label in order + order[::-1]:
-            runs[label].append(cuda_ms(calls[label], reps=10))
+        ms = [cuda_ms(lambda: sw_batch.sw_dp(qs, rs, qlens, dlos, W), reps=10) for _ in range(2)]
+        mean = sum(ms) / len(ms)
         cells, (bound_ms, _, kind) = dp_bound(qlens, W)
-        row = {"B": B, "Lq": Lq, "W": W, "cells": cells, "bound_ms": bound_ms, "max_abs_err": err}
-        for label, ms in runs.items():
-            mean = sum(ms) / len(ms)
-            row[label] = {"ms": ms, "gcells": cells / mean / 1e6, "roofline_pct": 100.0 * bound_ms / mean}
-            print(
-                f"phase 2 sweep (B={B}, Lq={Lq}, W={W}, {cells} live cells): {label} "
-                f"{' / '.join(f'{m:.4f}' for m in ms)} ms, {cells / mean / 1e6:.1f} Gcell/s, "
-                f"{100.0 * bound_ms / mean:.1f} % of its {bound_ms:.4f} ms bound ({kind})"
-            )
-        rows.append(row)
+        rows.append({
+            "B": B, "Lq": Lq, "W": W, "cells": cells, "ms": ms, "bound_ms": bound_ms,
+            "gcells": cells / mean / 1e6, "roofline_pct": 100.0 * bound_ms / mean,
+            "max_abs_err": err,
+        })
+        print(
+            f"phase 2 sweep (B={B}, Lq={Lq}, W={W}, {cells} live cells): sw_dp "
+            f"{' / '.join(f'{m:.4f}' for m in ms)} ms, {cells / mean / 1e6:.1f} Gcell/s, "
+            f"{100.0 * bound_ms / mean:.1f} % of its {bound_ms:.4f} ms bound ({kind})"
+        )
     return rows
 
 
@@ -410,7 +399,7 @@ def run_main_path(n_reads, device):
     torch.cuda.synchronize()
     wall_s = time.time() - t0
     launches = dict(sw_batch.LAUNCHES)
-    dp_shapes = list(sw_batch.DP_SHAPES)
+    dp_shapes = [[B, Lq, n] for (B, Lq), n in sw_batch.DP_SHAPES.items()]
     peak = torch.cuda.max_memory_allocated()
     with open(os.path.join(out, "phase_timings.json")) as f:
         phases = json.load(f)
@@ -421,7 +410,7 @@ def run_main_path(n_reads, device):
         f"{peak} bytes ({peak / 2**30:.2f} GiB), launches {launches}, "
         f"window-hash runs {graph_tables.DEVICE_RUNS}, dense tables {kmer.DENSE_TABLES}"
     )
-    print(f"phase 4 sw_dp launch shapes (B, Lq): {dp_shapes}")
+    print(f"phase 4 sw_dp launches by shape (B, Lq, launches): {dp_shapes}")
     with open(os.path.join(out, "amira_results.tsv")) as f:
         rows = list(csv.DictReader(f, delimiter="\t"))
     for r in rows:
@@ -462,15 +451,6 @@ def run_main_path(n_reads, device):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reads", type=int, default=50_000, help="reads of the phase-4 isolate")
-    ap.add_argument("--kernels-only", action="store_true", help="stop after phase 2")
-    ap.add_argument(
-        "--baseline-dp", metavar="SRC",
-        help="another sw_batch.cu whose sw_dp the sweep times beside this one",
-    )
-    ap.add_argument(
-        "--dp-warps", default="",
-        help="comma-separated warps per block of extra sw_dp builds for the sweep",
-    )
     args = ap.parse_args()
 
     import torch
@@ -490,26 +470,11 @@ def main():
     t0 = time.time()
     lib = sw_batch.build()
     print(f"phase 1 build: {os.path.relpath(lib, ROOT)} in {time.time() - t0:.2f} s")
-    with open(lib[: -len(".so")] + "_ptxas.txt") as f:
+    with open(os.path.join(os.path.dirname(lib), "sw_batch_ptxas.txt")) as f:
         for line in f:
             if "Used" in line or "spill" in line:
                 print(f"phase 1 ptxas: {line.strip()}")
-    variants = []
-    builds = os.path.join(ROOT, "chip_work", "variants")
-    if args.baseline_dp:
-        so = sw_batch.compile_library(os.path.abspath(args.baseline_dp), out_dir=builds)
-        variants.append(("baseline sw_dp", sw_batch.load_library(so)))
-    for n in filter(None, args.dp_warps.split(",")):
-        so = sw_batch.compile_library(defines=[f"SW_DP_WARPS={int(n)}"], out_dir=builds)
-        variants.append((f"sw_dp {n} warps/block", sw_batch.load_library(so)))
-
-    timings, sweep = check_kernels(device, variants)
-    if args.kernels_only:
-        os.makedirs(os.path.dirname(SUMMARY), exist_ok=True)
-        with open(SUMMARY, "w") as f:
-            json.dump({"card": card, "kernels": timings, "sweep": sweep}, f, indent=1)
-        print("kernels only: phases 3 and 4 not run, no result line")
-        return
+    timed, sweep = check_kernels(device)
     check_golden(device)
     summary = run_main_path(args.reads, device)
 
@@ -520,7 +485,7 @@ def main():
             "source": "amira_tpu_torch/csrc/sw_batch.cu",
             "replaces": "amira_tpu/ops/pallas_sw_batch.py:51",
             "launches": summary["launches"]["sw_dp"],
-            **timings["sw_dp"],
+            **timed[MAIN_SHAPE]["sw_dp"],
         },
         {
             "name": "sw_traceback",
@@ -528,13 +493,14 @@ def main():
             "source": "amira_tpu_torch/csrc/sw_batch.cu",
             "replaces": "amira_tpu/ops/align.py:390",
             "launches": summary["launches"]["sw_traceback"],
-            **timings["sw_traceback"],
+            **timed[MAIN_SHAPE]["sw_traceback"],
         },
     ]
     os.makedirs(os.path.dirname(SUMMARY), exist_ok=True)
     with open(SUMMARY, "w") as f:
         json.dump(
-            {"card": card, "kernels": kernels, "sweep": sweep, "main_path": summary}, f, indent=1
+            {"card": card, "kernels": kernels, "timed": list(timed.values()), "sweep": sweep,
+             "main_path": summary}, f, indent=1,
         )
     print(card)
     print(json.dumps({"kernels": kernels}))
