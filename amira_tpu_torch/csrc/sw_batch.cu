@@ -79,14 +79,62 @@
 // per strip), and the second pass of the state chain (shared by the row
 // state and the next row's diagonal).
 //
-// sw_traceback: one thread per job walks its traceback bytes from the best
-// cell, emitting =/X/I/D as 2-bit codes packed 4 per byte in step order
-// (the JAX walk's layout), and zero-fills the rest of its row. It is a
-// dependent chain of byte loads per job.
+// sw_traceback walks each job's traceback bytes from the best cell, emitting
+// =/X/I/D as 2-bit codes packed 4 per byte in step order (the JAX walk's
+// layout), and zero-fills the rest of its row. A step reads the byte of its
+// cell and moves by the current state alone: M to (i-1, w), I and I2 to
+// (i-1, w+1), D and D2 to (i, w-1); the byte gives the next state. Reads
+// are clamped to the band (row min(i, Lq-1), lane clamp(w, 0, W-1)).
+//
+// What bounds sw_traceback on this card: its bytes and operations are tiny
+// (about 1,000 steps per job at Lq = 1024; under a microsecond at the
+// roofline). Each job is one serial chain of steps, and where a step reads
+// depends on the step before, so the time is set by the longest walk. The
+// earlier kernel (one thread per job) paid a device-memory latency per step
+// (0.69 ms at (B, Lq) = (980, 1024) on an H100, PERF.md): the DP has just
+// written a band several times the size of the L2.
+//
+// sw_traceback design: one warp per job (kTbWarps = 4 per block, so the main
+// path's B = 980 spreads over every SM), the walk's bytes in shared memory,
+// and a run of steps at a time.
+//   * A run: while the walk keeps its state, every step moves the same way
+//     (M down a lane, I and I2 down and one lane up, D and D2 one lane
+//     down). Lane j reads the cell of step n + j as if the state held, from
+//     shared memory; two ballots find the first cell outside the staged
+//     tile (not taken) and the first that leaves the state (M through a
+//     predecessor other than 1, 6, 7; a gap state through a clear extend
+//     bit; taken, and its byte gives the next state). So one iteration takes
+//     up to 32 steps: about 16 on the main path's walks, whose runs end at
+//     indels and at tile edges.
+//   * A tile is kTbRows query rows by a window of kTbWin band lanes around
+//     the walk's lane, aligned to 16 bytes and clipped to the band, copied
+//     by the warp with 16-byte cp.async copies, one commit group per tile.
+//     Each warp has a ring of kTbTiles tiles: the one the walk reads and the
+//     next rows below it, same window, in flight. A walk that leaves its
+//     tile through the bottom enters the oldest tile in flight and starts
+//     the copy of the next one into the slot it left. A walk that leaves the window
+//     sideways (a long run of insertions or deletions) stages the ring anew
+//     at its (i, w) and waits for the first tile: a re-stage, counted in a
+//     device counter (sw_traceback_restages()). A cell outside the band
+//     (w < 0, w >= W, i >= Lq) is one step on the clamped cell, read from
+//     device memory. The result is exact in every case; only speed depends
+//     on where the walk goes.
+//   * Each step's 2-bit op goes into a ring of kTbOps bytes in shared
+//     memory; every 256 steps (and at the end, masked past the walk) 16
+//     lanes pack 16 ops each into one word of the output row. The warp then
+//     zero-fills the rest of the row.
+//   * No __syncthreads: only __syncwarp, the ballots and the copy waits.
+//   The constants were chosen by timing on an H100 at the main path's
+//   (B, Lq) = (980, 1024) and (490, 1024) and at (512, 2048) (PERF.md): a
+//   ring of 2, 4, 8, 16 tiles, 16 to 128 rows, 16 to 64 lanes, 2 to 8
+//   warps per block. It is now bound by the slowest walk's chain of
+//   dependent iterations (about 100-130 at Lq = 1024 for a gappy walk), not
+//   by memory: the same walk over a band already in L2 is no faster.
 //
 // Neither kernel allocates or synchronises; both launch on the stream they
 // are given, and each launcher returns cudaGetLastError().
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -101,6 +149,11 @@ constexpr int kGapOpen2 = 25;
 constexpr int kGapExt2 = 1;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kDpWarps = 4;  // jobs (warps) per block of sw_dp
+constexpr int kTbWarps = 4;   // jobs (warps) per block of sw_traceback
+constexpr int kTbRows = 64;   // query rows per traceback tile
+constexpr int kTbWin = 32;    // band lanes per traceback tile (at most W)
+constexpr int kTbTiles = 4;   // tiles per warp: the walk's, and those below it in flight
+constexpr int kTbOps = 512;   // ops staged per warp before packing: two blocks of 256
 
 constexpr int kOpEq = 0;
 constexpr int kOpX = 1;
@@ -323,66 +376,219 @@ __global__ void __launch_bounds__(kDpWarps * 32)
   }
 }
 
-__global__ void sw_traceback_kernel(const uint8_t* __restrict__ tb,
-                                    const int32_t* __restrict__ best,
-                                    const int32_t* __restrict__ bi,
-                                    const int32_t* __restrict__ bw,
-                                    const int32_t* __restrict__ bs,
-                                    const int32_t* __restrict__ dlos, int B,
-                                    int Lq, int W, int S,
-                                    uint8_t* __restrict__ packed,
-                                    int32_t* __restrict__ n_steps,
-                                    int32_t* __restrict__ q0,
-                                    int32_t* __restrict__ r0) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+// 16-byte asynchronous copy from device to shared memory, and its groups
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// first band lane of the tile window that holds lane w (0 <= w < W): kWin
+// lanes around w, aligned to 16 bytes, inside the band
+template <int W, int kWin>
+__device__ __forceinline__ int tile_window(int w) {
+  return min(max((w - kWin / 2 + 8) & ~15, 0), W - kWin);
+}
+
+// The warp's copies of one tile: rows base .. base + kTbRows - 1 (those
+// >= 0) of band lanes c0 .. c0 + kWin - 1, row base + k at tile + k * kWin.
+template <int W, int kWin>
+__device__ __forceinline__ void stage_tile(uint8_t* tile, const uint8_t* t,
+                                           int base, int c0, int lane) {
+  constexpr int kChunks = kWin / 16;  // 16-byte chunks per row
+  static_assert(kWin % 16 == 0 && kTbRows * kChunks % 32 == 0,
+                "whole 16-byte chunks, the same count for every lane");
+#pragma unroll
+  for (int j = 0; j < kTbRows * kChunks / 32; ++j) {
+    const int k = j * 32 + lane;
+    const int r = base + k / kChunks;
+    if (r >= 0) cp_async16(tile + k * 16, t + (size_t)r * W + c0 + (k % kChunks) * 16);
+  }
+}
+
+// the four 2-bit ops in the low bits of the four bytes of x, as one byte
+// (the bytes' other bits may be anything: a staged op past the walk's end)
+__device__ __forceinline__ unsigned pack4(unsigned x) {
+  x &= 0x03030303u;
+  return (x | x >> 6 | x >> 12 | x >> 18) & 0xffu;
+}
+
+// Packs block `blk` (256 steps) of a walk's staged ops into 16 words of its
+// packed row, with zeros for steps at or past n. Whole warp.
+__device__ __forceinline__ void flush_ops(uint32_t* out, const uint8_t* ops,
+                                          int blk, int n, int n_words,
+                                          int lane) {
+  __syncwarp();
+  if (lane < 16) {
+    const int p = blk * 256 + lane * 16;  // the word's first step
+    const uint4 v = *reinterpret_cast<const uint4*>(ops + (p & (kTbOps - 1)));
+    unsigned word = pack4(v.x) | pack4(v.y) << 8 | pack4(v.z) << 16 | pack4(v.w) << 24;
+    if (p + 16 > n) word &= n > p ? (1u << (2 * (n - p))) - 1u : 0u;
+    if (blk * 16 + lane < n_words) out[blk * 16 + lane] = word;
+  }
+  __syncwarp();
+}
+
+// re-stages of all sw_traceback launches (see sw_traceback_restages)
+__device__ unsigned long long g_tb_restages = 0;
+
+template <int W>
+__global__ void __launch_bounds__(kTbWarps * 32)
+    sw_traceback_kernel(const uint8_t* __restrict__ tb,
+                        const int32_t* __restrict__ best,
+                        const int32_t* __restrict__ bi,
+                        const int32_t* __restrict__ bw,
+                        const int32_t* __restrict__ bs,
+                        const int32_t* __restrict__ dlos, int B, int Lq,
+                        int max_steps, uint8_t* __restrict__ packed,
+                        int32_t* __restrict__ n_steps, int32_t* __restrict__ q0,
+                        int32_t* __restrict__ r0) {
+  constexpr int kWin = kTbWin < W ? kTbWin : W;
+  constexpr int kTile = kTbRows * kWin;
+  static_assert((kTbTiles & (kTbTiles - 1)) == 0 && kTbTiles >= 2, "a ring of 2^k tiles");
+  extern __shared__ __align__(16) uint8_t tb_smem[];
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kTbWarps + (threadIdx.x >> 5);
+  if (b >= B) return;  // a ragged last block's spare warps
+  uint8_t* tiles = tb_smem + (threadIdx.x >> 5) * (kTbTiles * kTile + kTbOps);
+  uint8_t* ops = tiles + kTbTiles * kTile;
   const uint8_t* t = tb + (size_t)b * Lq * W;
-  uint8_t* out = packed + (size_t)b * (S / 4);
+  uint32_t* out = reinterpret_cast<uint32_t*>(packed + (size_t)b * (max_steps / 4));
+  const int n_words = max_steps / 16;
+
   int i = bi[b], w = bw[b], state = bs[b];
-  bool done = i < 0 || best[b] <= 0;
   int n = 0;
-  unsigned acc = 0;
-  while (!done && i >= 0 && n < S) {
-    const int ic = min(max(i, 0), Lq - 1);
-    const int wc = min(max(w, 0), W - 1);
-    const int byte = t[(size_t)ic * W + wc];
-    int op, di, dw, nstate;
-    if (state == 0) {  // M: consumes both, predecessor from bits 0-2
+  if (best[b] > 0 && i >= 0 && max_steps > 0) {
+    // The walk reads tile `cur` (slot cur % kTbTiles): rows base .. base +
+    // kTbRows - 1 of lanes c0 .. c0 + kWin - 1. Tiles cur + 1 .. cur +
+    // kTbTiles - 1 (the rows below, same lanes) are in flight, one copy
+    // group each, oldest first.
+    int cur = 0, base = INT_MIN, c0 = 0;
+    bool staged = false;
+    for (;;) {
+      const bool is_m = state == 0;
+      const bool is_i = state == 1 || state == 3;
+      const int di = is_m || is_i ? 1 : 0;
+      const int dw = is_i ? 1 : (state == 2 || state == 4) ? -1 : 0;
+      // Lane j reads the cell of step n + j if the walk stays in this state
+      // until then: (i - j*di, w + j*dw), when it is in the tile.
+      const int ij = i - lane * di;
+      const unsigned ri = (unsigned)ij - (unsigned)base;
+      const unsigned wi = (unsigned)(w + lane * dw) - (unsigned)c0;
+      const bool inside = ri < (unsigned)kTbRows && wi < (unsigned)kWin && ij >= 0 &&
+                          n + lane < max_steps;
+      const int byte = inside ? tiles[(cur & (kTbTiles - 1)) * kTile + ri * kWin + wi] : 0;
       const int pred = byte & 7;
-      op = (byte >> 7) & 1 ? kOpEq : kOpX;
-      nstate = (pred >= 1 && pred <= 5) ? pred - 1 : 0;
-      di = 1;
-      dw = 0;
-      done = pred == 0;
-    } else if (state == 1 || state == 3) {  // I / I2: query only, lane w+1
-      const int ext = (byte >> (state == 1 ? 3 : 5)) & 1;
-      op = kOpI;
-      nstate = ext ? state : 0;
-      di = 1;
-      dw = 1;
-    } else {  // D / D2: reference only, lane w-1
-      const int ext = (byte >> (state == 2 ? 4 : 6)) & 1;
-      op = kOpD;
-      nstate = ext ? state : 0;
-      di = 0;
-      dw = (state == 2 || state == 4) ? -1 : 0;
-    }
-    i -= di;
-    w += dw;
-    state = nstate;
-    acc |= (unsigned)op << (2 * (n & 3));
-    ++n;
-    if ((n & 3) == 0) {
-      out[(n >> 2) - 1] = (uint8_t)acc;
-      acc = 0;
+      const int ebit = is_m ? 7 : state == 1 ? 3 : state == 2 ? 4 : state == 3 ? 5 : 6;
+      const int e = (byte >> ebit) & 1;
+      // M stays M through predecessors 1, 6 and 7; a gap state while its
+      // extend bit is set. The run ends at the first cell outside the tile
+      // (not taken) or the first that leaves the state (taken).
+      const bool stays = is_m ? pred == 1 || pred >= 6 : e != 0;
+      const unsigned outside = __ballot_sync(kFull, !inside);
+      const unsigned leaves = __ballot_sync(kFull, inside && !stays);
+      const unsigned stops = outside | leaves;
+      const int first = stops ? __ffs(stops) - 1 : 32;
+      const bool left = (leaves & stops & (0u - stops)) != 0;
+      const int k = first + (left ? 1 : 0);  // steps taken
+      int op = is_m ? (byte >> 7 ? kOpEq : kOpX) : is_i ? kOpI : kOpD;
+      int nstate = state;
+      bool done = false;
+      if (k > 0) {
+        const int lpred = __shfl_sync(kFull, pred, first & 31);
+        if (left) {
+          nstate = is_m ? ((unsigned)(lpred - 1) < 5u ? lpred - 1 : 0) : 0;
+          done = is_m && lpred == 0;
+        }
+        if (lane < k) ops[(n + lane) & (kTbOps - 1)] = (uint8_t)op;
+      } else if (i < Lq && (unsigned)w < (unsigned)W) {
+        // The walk's cell is not in its tile: enter the tile below, or
+        // stage anew at (i, w) when the walk left the window (or starts).
+        if (staged && (unsigned)i - ((unsigned)base - kTbRows) < (unsigned)kTbRows &&
+            (unsigned)w - (unsigned)c0 < (unsigned)kWin) {
+          cp_async_wait<kTbTiles - 2>();
+          __syncwarp();
+          ++cur;
+          base -= kTbRows;
+          // the slot just left takes the tile kTbTiles - 1 below
+          stage_tile<W, kWin>(tiles + ((cur - 1) & (kTbTiles - 1)) * kTile, t,
+                              base - (kTbTiles - 1) * kTbRows, c0, lane);
+          cp_async_commit();
+        } else {
+          if (staged && lane == 0) atomicAdd(&g_tb_restages, 1ull);
+          staged = true;
+          cp_async_wait<0>();
+          __syncwarp();
+          cur = 0;
+          base = i - kTbRows + 1;
+          c0 = tile_window<W, kWin>(w);
+#pragma unroll 1
+          for (int s = 0; s < kTbTiles; ++s) {
+            stage_tile<W, kWin>(tiles + s * kTile, t, base - s * kTbRows, c0, lane);
+            cp_async_commit();
+          }
+          cp_async_wait<kTbTiles - 1>();
+        }
+        __syncwarp();
+        continue;
+      } else {
+        // a cell outside the band: one step on the clamped cell, read from
+        // device memory
+        const int gb = t[(size_t)min(i, Lq - 1) * W + min(max(w, 0), W - 1)];
+        const int gpred = gb & 7;
+        const int ge = (gb >> ebit) & 1;
+        op = is_m ? (gb >> 7 ? kOpEq : kOpX) : is_i ? kOpI : kOpD;
+        nstate = is_m ? ((unsigned)(gpred - 1) < 5u ? gpred - 1 : 0) : (ge ? state : 0);
+        done = is_m && gpred == 0;
+        if (lane == 0) ops[n & (kTbOps - 1)] = (uint8_t)op;
+      }
+      const int steps = k > 0 ? k : 1;
+      const int n0 = n;
+      i -= steps * di;
+      w += steps * dw;
+      n += steps;
+      state = nstate;
+      if ((n0 >> 8) != (n >> 8)) flush_ops(out, ops, n0 >> 8, n, n_words, lane);
+      if (done || i < 0 || n >= max_steps) break;
     }
   }
-  int nb = n >> 2;
-  if (n & 3) out[nb++] = (uint8_t)acc;
-  for (int j = nb; j < S / 4; ++j) out[j] = 0;
-  n_steps[b] = n;
-  q0[b] = i + 1;
-  r0[b] = i + 1 + dlos[b] + w;
+  // the last partial block of ops, then zeros to the end of the row
+  if (n & 255) flush_ops(out, ops, n >> 8, n, n_words, lane);
+  for (int j = ((n + 255) >> 8) * 16 + lane; j < n_words; j += 32) out[j] = 0;
+  if (lane == 0) {
+    n_steps[b] = n;
+    q0[b] = i + 1;
+    r0[b] = i + 1 + dlos[b] + w;
+  }
+  cp_async_wait<0>();  // tiles fetched ahead may still be in flight
+}
+
+template <int W>
+int launch_traceback(const void* tb, const void* best, const void* bi,
+                     const void* bw, const void* bs, const void* dlos, int B,
+                     int Lq, int max_steps, void* packed, void* n_steps,
+                     void* q0, void* r0, cudaStream_t st) {
+  constexpr int kWin = kTbWin < W ? kTbWin : W;
+  constexpr int smem = kTbWarps * (kTbTiles * kTbRows * kWin + kTbOps);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        sw_traceback_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int blocks = (B + kTbWarps - 1) / kTbWarps;
+  sw_traceback_kernel<W><<<blocks, kTbWarps * 32, smem, st>>>(
+      (const uint8_t*)tb, (const int32_t*)best, (const int32_t*)bi,
+      (const int32_t*)bw, (const int32_t*)bs, (const int32_t*)dlos, B, Lq,
+      max_steps, (uint8_t*)packed, (int32_t*)n_steps, (int32_t*)q0,
+      (int32_t*)r0);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -423,15 +629,34 @@ int sw_dp_launch(const void* qs, const void* rs, const void* qlens,
 
 int sw_traceback_launch(const void* tb, const void* best, const void* bi,
                         const void* bw, const void* bs, const void* dlos,
-                        int B, int Lq, int W, int S, void* packed,
+                        int B, int Lq, int W, int max_steps, void* packed,
                         void* n_steps, void* q0, void* r0, void* stream) {
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  sw_traceback_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)tb, (const int32_t*)best, (const int32_t*)bi,
-      (const int32_t*)bw, (const int32_t*)bs, (const int32_t*)dlos, B, Lq, W,
-      S, (uint8_t*)packed, (int32_t*)n_steps, (int32_t*)q0, (int32_t*)r0);
-  return (int)cudaGetLastError();
+  if (max_steps % 16 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (W) {
+    case 64:
+      return launch_traceback<64>(tb, best, bi, bw, bs, dlos, B, Lq, max_steps,
+                                  packed, n_steps, q0, r0, st);
+    case 128:
+      return launch_traceback<128>(tb, best, bi, bw, bs, dlos, B, Lq, max_steps,
+                                   packed, n_steps, q0, r0, st);
+    case 256:
+      return launch_traceback<256>(tb, best, bi, bw, bs, dlos, B, Lq, max_steps,
+                                   packed, n_steps, q0, r0, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Reads sw_traceback's re-stage count into *out (synchronous), and resets
+// it to 0 if `reset`.
+int sw_traceback_restages(unsigned long long* out, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_tb_restages, sizeof *out);
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero = 0;
+    err = cudaMemcpyToSymbol(g_tb_restages, &zero, sizeof zero);
+  }
+  return (int)err;
 }
 
 }  // extern "C"

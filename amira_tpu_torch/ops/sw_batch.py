@@ -21,7 +21,9 @@ Beside each kernel is its plain PyTorch version (`sw_dp_reference`,
 with `torch.cummax` for the deletion recurrences, and a vectorised walk. The
 wrappers use the plain versions only for tensors on the CPU; for CUDA
 tensors they launch the kernels or raise. `LAUNCHES` counts kernel launches
-and `DP_SHAPES` counts sw_dp launches by (B, Lq).
+and `DP_SHAPES` counts sw_dp launches by (B, Lq); `traceback_restages()`
+reads the traceback kernel's count of re-stages (tiles it had to stage and
+wait for because a walk left the window of lanes it was reading).
 """
 
 from __future__ import annotations
@@ -85,14 +87,16 @@ def _nvcc() -> str:
 
 
 def build() -> str:
-    """Compile csrc/sw_batch.cu (once per source content) and load it;
-    returns the library path. Raises with nvcc's output on failure."""
+    """Compile csrc/sw_batch.cu (once per source content: the library is
+    named by the source's digest) and load it, once per process; returns the
+    library path. Raises with nvcc's output on failure. The wrappers call it
+    before every launch, so after the first call it touches no file."""
     global _lib
+    if _lib is not None:
+        return _lib._name
     with open(_SRC, "rb") as f:
         digest = hashlib.sha1(f.read()).hexdigest()[:12]
     so = os.path.join(BUILD_DIR, f"libsw_batch_{digest}.so")
-    if _lib is not None and _lib._name == so:
-        return so
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
@@ -115,6 +119,8 @@ def build() -> str:
     lib.sw_dp_launch.restype = ctypes.c_int
     lib.sw_traceback_launch.argtypes = [p] * 6 + [i, i, i, i] + [p] * 5
     lib.sw_traceback_launch.restype = ctypes.c_int
+    lib.sw_traceback_restages.argtypes = [ctypes.POINTER(ctypes.c_ulonglong), i]
+    lib.sw_traceback_restages.restype = ctypes.c_int
     _lib = lib
     return so
 
@@ -288,31 +294,51 @@ def sw_traceback(tb, best, bi, bw, bs, dlos, W: int):
     (B, tb_steps(Lq, W) // 4) uint8 (op t of the walk at byte t // 4, bits
     2*(t % 4); zero past the walk), and n_steps, q0, r0 (B,) int32 with
     r0 = q0 + dlo + final lane. A job with bi < 0 or best <= 0 is done at
-    once."""
+    once.
+
+    The kernel takes W in DP_WIDTHS and a tb whose data is 16-byte aligned
+    (it copies 16-byte chunks of rows); it raises ValueError otherwise."""
     if tb.device.type == "cpu":
         return sw_traceback_reference(tb, best, bi, bw, bs, dlos, W)
     if tb.device.type != "cuda":
         raise ValueError(f"sw_traceback: unsupported device {tb.device}")
+    if W not in DP_WIDTHS:
+        raise ValueError(f"sw_traceback: W must be one of {DP_WIDTHS}, got {W}")
     B, Lq, _ = tb.shape
     dev = tb.device
     _check(tb, "tb", torch.uint8, (B, Lq, W), dev)
+    if tb.data_ptr() % 16:
+        raise ValueError("sw_traceback: tb must be 16-byte aligned")
     for name, t in (("best", best), ("bi", bi), ("bw", bw), ("bs", bs), ("dlos", dlos)):
         _check(t, name, torch.int32, (B,), dev)
     build()
-    S = tb_steps(Lq, W)
-    packed = torch.empty((B, S // 4), dtype=torch.uint8, device=dev)
+    max_steps = tb_steps(Lq, W)
+    packed = torch.empty((B, max_steps // 4), dtype=torch.uint8, device=dev)
     n_steps, q0, r0 = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3))
     if B == 0:
         return packed, n_steps, q0, r0
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib.sw_traceback_launch(
         tb.data_ptr(), best.data_ptr(), bi.data_ptr(), bw.data_ptr(),
-        bs.data_ptr(), dlos.data_ptr(), B, Lq, W, S, packed.data_ptr(),
+        bs.data_ptr(), dlos.data_ptr(), B, Lq, W, max_steps, packed.data_ptr(),
         n_steps.data_ptr(), q0.data_ptr(), r0.data_ptr(), stream,
     )
     _raise_on(err, "sw_traceback")
     LAUNCHES["sw_traceback"] += 1
     return packed, n_steps, q0, r0
+
+
+def traceback_restages(reset: bool = False) -> int:
+    """Re-stages of the sw_traceback kernel since the library was loaded or
+    last reset: tiles a walk staged and waited for after its first, because
+    it left the window of lanes it was reading. Synchronises the card."""
+    build()
+    torch.cuda.synchronize()
+    count = ctypes.c_ulonglong(0)
+    err = _lib.sw_traceback_restages(ctypes.byref(count), int(reset))
+    if err != 0:
+        raise RuntimeError(f"sw_traceback_restages: CUDA error {err}")
+    return count.value
 
 
 def sw_traceback_reference(tb, best, bi, bw, bs, dlos, W: int):

@@ -13,10 +13,15 @@ Run from the root of a checkout. Phases, each printing its own lines:
    strongly negative diagonals and a ragged last block) and at the
    production shapes: the two large sw_dp launches of the 50k-read main
    path, (B, Lq) = (980, 1024) and (490, 1024), and (512, 2048), all at
-   W=256, each with CUDA-event times of both and each kernel's bound. Then
-   a sweep of sw_dp at Lq=2048, W=256 over B = 128, 512, 1024, 2048 (ms,
-   Gcell/s over live cells), exact against the plain version at every
-   point.
+   W=256, each with CUDA-event times of both and each kernel's bound. The
+   traceback is timed as the main path calls it, each launch right after a
+   fresh sw_dp on the same inputs, beside its longest walk, its time per
+   step of that walk and its re-stages per walk. sw_traceback is then held
+   to its plain version on random traceback bytes (long gap runs, clamped
+   lanes, walks that reach the step cap), up to (W, Lq, B) = (256, 1024,
+   980). Then a sweep of sw_dp at Lq=2048, W=256 over B = 128, 512, 1024,
+   2048 (ms, Gcell/s over live cells), exact against the plain version at
+   every point.
 3. The committed golden: the CLI with --device cuda on the seed-7 isolate
    must write tests/goldens/amira_results_seed7.tsv byte for byte.
 4. The main path at a real isolate size: a 4,003-slot E. coli-like genome,
@@ -61,6 +66,9 @@ EDGE_SHAPE = (256, 192, 37)
 PROD_SHAPES = [(256, 1024, 980), (256, 1024, 490), (256, 2048, 512)]
 MAIN_SHAPE = (256, 1024, 980)
 SWEEP_B = (128, 512, 1024, 2048)  # sw_dp at Lq=2048, W=256
+# (W, Lq, B) of the random-byte traceback checks: the CPU test's and one near
+# the main path's largest launch
+RANDOM_SHAPES = [(64, 96, 40), (256, 192, 24), (256, 1024, 980)]
 
 # Bounds. H100 SXM: HBM3 at 3.35 TB/s (NVIDIA's data sheet); int32 issue of
 # 132 SMs x 64 int32 lanes x 1.98 GHz boost clock (Hopper white paper).
@@ -79,7 +87,8 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # D2, the same and the NEG clamp, 3 each; the masks outside the reference
 # 5; the traceback byte's five flags 5; the row maximum at its first lane 2.
 SW_DP_OPS_PER_CELL = 39
-# int32 operations per step of sw_traceback's walk, counted from its loop
+# int32 operations per step of sw_traceback's walk, counted from the loop of
+# the first (one thread per job) kernel and kept fixed across versions
 SW_TB_OPS_PER_STEP = 20
 
 
@@ -125,6 +134,30 @@ def sw_inputs(W, Lq, B, seed, device, min_len=8, edges=False):
             qlens[b] = n
         dlos[3], dlos[4] = -(Lq - 1), -(Lq - W // 2)
     return [torch.from_numpy(a).to(device) for a in (qs, rs, qlens, dlos)]
+
+
+def random_band(W, Lq, B, seed):
+    """Random traceback bytes and walk starts, as numpy arrays (tb (B, Lq,
+    W) uint8; best, bi, bw, bs, dlos (B,) int32): predecessor codes skewed
+    to 1-5, each extend bit set with probability 13/16, the match bit with
+    1/2. Such walks run long gap stretches, reach clamped lanes and the step
+    cap, which walks over DP-made bands rarely do. Some jobs are done at
+    once (best <= 0 or bi = -1) and some start outside the band."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    pred_of = np.repeat(np.arange(8, dtype=np.uint8), [8, 96, 32, 32, 32, 32, 12, 12])
+    tb = pred_of[rng.randint(0, 256, size=(B, Lq, W), dtype=np.uint8)]
+    for bit in range(3, 8):
+        odds = 128 if bit == 7 else 208
+        tb |= (rng.randint(0, 256, size=tb.shape, dtype=np.uint8) < odds).astype(np.uint8) << bit
+    best = rng.randint(-2, 40, size=B).astype(np.int32)
+    bi = rng.randint(-1, Lq, size=B).astype(np.int32)
+    bw = rng.randint(0, W, size=B).astype(np.int32)
+    bw[0::13], bw[1::13] = -3, W + 2
+    bs = rng.randint(0, 5, size=B).astype(np.int32)
+    dlos = rng.randint(-Lq, Lq, size=B).astype(np.int32)
+    return tb, best, bi, bw, bs, dlos
 
 
 def max_abs_diff(pairs) -> int:
@@ -210,7 +243,9 @@ def check_kernels(device):
         # traceback rows at or past a job's query length are unspecified
         dp_err = dp_diff((tb, best, bi, bw, bs), (r_tb, r_best, r_bi, r_bw, r_bs), qlens)
         del r_tb
+        sw_batch.traceback_restages(reset=True)
         tb_out = sw_batch.sw_traceback(tb, best, bi, bw, bs, dlos, W)
+        restages = sw_batch.traceback_restages(reset=True)
         r_tb_out = sw_batch.sw_traceback_reference(tb, best, bi, bw, bs, dlos, W)
         tb_err = max_abs_diff(list(zip(tb_out, r_tb_out)))
         fused = sw_batch.sw_cigar(qs, rs, qlens, dlos, W)
@@ -236,23 +271,78 @@ def check_kernels(device):
             fail(f"too few aligned jobs ({mapped}) at {(W, Lq, B)}")
         errs["sw_dp"] = max(errs["sw_dp"], dp_err, fused_err)
         errs["sw_traceback"] = max(errs["sw_traceback"], tb_err, fused_err)
-        del fused, r_fused, tb_out, r_tb_out
+        del fused, r_fused, tb_out, r_tb_out, tb
         if prod:
-            timed[(W, Lq, B)] = time_kernels(qs, rs, qlens, dlos, W, tb, best, bi, bw, bs)
-        del tb
+            walked = int((r_n > 0).sum())
+            print(
+                f"phase 2 walks (B={B}, Lq={Lq}, W={W}): {walked} walks, longest "
+                f"{int(r_n.max())} steps, {int(r_n.sum())} steps in all, "
+                f"{restages} re-stages ({restages / max(walked, 1):.4f} per walk)"
+            )
+            timed[(W, Lq, B)] = time_kernels(qs, rs, qlens, dlos, W)
+            timed[(W, Lq, B)]["sw_traceback"]["restages"] = restages
+    check_random_walks(device)
     for fields in timed.values():
         for name, f in fields.items():
             f["max_abs_err"] = errs[name]
     return timed, sweep_dp(device)
 
 
-def time_kernels(qs, rs, qlens, dlos, W, tb, best, bi, bw, bs):
+def check_random_walks(device):
+    """sw_traceback against its plain version, exactly, on random_band at
+    RANDOM_SHAPES."""
+    import torch
+
+    from amira_tpu_torch.ops import sw_batch
+
+    for W, Lq, B in RANDOM_SHAPES:
+        args = [torch.from_numpy(a).to(device) for a in random_band(W, Lq, B, seed=W + Lq + B)]
+        got = sw_batch.sw_traceback(*args, W)
+        ref = sw_batch.sw_traceback_reference(*args, W)
+        err = max_abs_diff(list(zip(got, ref)))
+        n = ref[1]
+        capped = int((n == sw_batch.tb_steps(Lq, W)).sum())
+        print(
+            f"phase 2 random walks (W={W}, Lq={Lq}, B={B}): sw_traceback max_abs_err {err}, "
+            f"{int((n > 0).sum())} walks, longest {int(n.max())} steps, {capped} at the step cap"
+        )
+        if err:
+            fail(f"sw_traceback differs from its plain version on random bytes at {(W, Lq, B)}")
+
+
+def traceback_after_dp_ms(traceback, qs, rs, qlens, dlos, W, reps=20) -> float:
+    """Mean milliseconds of `traceback(tb, best, bi, bw, bs, dlos, W)` as
+    the main path calls it: each launch right after a fresh sw_dp on the
+    same inputs (so the band is the one the DP just wrote), between its own
+    pair of CUDA events; one warm-up launch first."""
+    import torch
+
+    from amira_tpu_torch.ops import sw_batch
+
+    events = []
+    for _ in range(reps + 1):
+        tb, best, bi, bw, bs = sw_batch.sw_dp(qs, rs, qlens, dlos, W)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        traceback(tb, best, bi, bw, bs, dlos, W)
+        end.record()
+        events.append((start, end))
+        del tb
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events[1:]) / reps
+
+
+def time_kernels(qs, rs, qlens, dlos, W):
     """CUDA-event times of both kernels and their plain versions on one
-    batch, with each kernel's bound; prints one line per kernel."""
+    batch, with each kernel's bound and the longest walk; prints one line
+    per kernel."""
     from amira_tpu_torch.ops import sw_batch
 
     B, Lq = qs.shape
+    tb, best, bi, bw, bs = sw_batch.sw_dp(qs, rs, qlens, dlos, W)
     packed, n_steps, _, _ = sw_batch.sw_traceback(tb, best, bi, bw, bs, dlos, W)
+    longest = int(n_steps.max())
     times = {
         "sw_dp": (
             cuda_ms(lambda: sw_batch.sw_dp(qs, rs, qlens, dlos, W), reps=20),
@@ -260,7 +350,7 @@ def time_kernels(qs, rs, qlens, dlos, W, tb, best, bi, bw, bs):
             dp_bound(qlens, W)[1],
         ),
         "sw_traceback": (
-            cuda_ms(lambda: sw_batch.sw_traceback(tb, best, bi, bw, bs, dlos, W), reps=20),
+            traceback_after_dp_ms(sw_batch.sw_traceback, qs, rs, qlens, dlos, W),
             cuda_ms(
                 lambda: sw_batch.sw_traceback_reference(tb, best, bi, bw, bs, dlos, W),
                 reps=2,
@@ -268,6 +358,7 @@ def time_kernels(qs, rs, qlens, dlos, W, tb, best, bi, bw, bs):
             tb_bound(packed, n_steps),
         ),
     }
+    del tb
     out = {}
     for name, (ms, plain_ms, (bound_ms, bound_by, kind)) in times.items():
         pct = 100.0 * bound_ms / ms
@@ -279,8 +370,14 @@ def time_kernels(qs, rs, qlens, dlos, W, tb, best, bi, bw, bs):
         out[name] = {
             "shape": {"B": B, "Lq": Lq, "W": W}, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bound_kind": kind,
-            "roofline_pct": pct, "library_ms": None,
+            "roofline_pct": pct, "library_ms": None, "longest_walk": longest,
         }
+    ns = times["sw_traceback"][0] * 1e6 / max(longest, 1)
+    print(
+        f"phase 2 walk at (B={B}, Lq={Lq}, W={W}): longest walk {longest} steps, "
+        f"sw_traceback {ns:.1f} ns per step of it"
+    )
+    out["sw_traceback"]["ns_per_step"] = ns
     return out
 
 
@@ -509,7 +606,7 @@ def main():
         "device": {
             "platform": "gpu",
             "kind": torch.cuda.get_device_name(0),
-            "count": 1,
+            "count": torch.cuda.device_count(),
         },
     }))
 

@@ -15,15 +15,27 @@ version: the deletion recurrence as strips joined by a warp scan, the row
 maximum as one reduction over packed keys, and a whole row step that carries
 the row-state chain into the next row's diagonal move.
 
+The traceback walk is held to the JAX walk on random traceback bytes (long
+gap runs, clamped lanes, walks that reach the step cap), and a NumPy model
+of how the CUDA traceback walks (a run of steps at a time across the lanes
+of a warp, tiles of rows by a window of lanes staged in shared memory, the
+tiles below fetched ahead, re-staging when the walk leaves the window,
+reads outside the band from device memory, copies that land only at their
+wait, ops packed from a ring) is held to the plain version, at the kernel's
+sizes and at small ones that miss often.
+
 Tolerance: zero; scores, endpoints, packed ops and CIGARs are exact.
 """
 
+import re
+
+import jax
 import numpy as np
 import pytest
 import torch
 
 from amira_tpu.ops.align import Aligner as JaxAligner
-from amira_tpu.ops.align import _batched_sw_cigar, _unpack_cigar
+from amira_tpu.ops.align import _batched_sw_cigar, _traceback_batch, _unpack_cigar
 from amira_tpu.ops.align import _bucket as jax_bucket
 from amira_tpu.ops.pallas_sw_batch import pallas_sw_cigar
 from amira_tpu_torch.ops import sw_batch
@@ -38,6 +50,7 @@ from amira_tpu_torch.ops.align import (
 )
 from amira_tpu_torch.ops.align import Aligner as PortAligner
 from amira_tpu_torch.ops.align import _bucket as port_bucket
+from chip_smoke import random_band
 
 NAMES = ("packed", "n_steps", "q0", "r0", "best", "bi", "bw")
 
@@ -301,9 +314,17 @@ def test_kernel_model_matches_plain_version(W, lq, B):
     assert (out[0] > 0).sum() >= B // 2
 
 
-@pytest.mark.parametrize("W,lq,B", [(64, 128, 24), (128, 256, 9)])
-def test_plain_version_matches_xla_and_pallas(W, lq, B):
-    arrays = _batch(W, lq, B, n_padded=3)
+@pytest.mark.parametrize(
+    "W,lq,B,edges",
+    [
+        pytest.param(64, 128, 24, False, id="64-128-24"),
+        pytest.param(128, 256, 9, False, id="128-256-9"),
+        # the main path's band width, with the DP's edge cases planted
+        pytest.param(256, 192, 16, True, id="256-192-16-edges"),
+    ],
+)
+def test_plain_version_matches_xla_and_pallas(W, lq, B, edges):
+    arrays = _edge_batch(W, lq, B) if edges else _batch(W, lq, B, n_padded=3)
     xla = [np.asarray(x) for x in _batched_sw_cigar(*arrays, W)]
     pls = [np.asarray(x) for x in pallas_sw_cigar(*arrays, W, interpret=True)]
     got = [t.numpy() for t in sw_batch.sw_cigar_reference(*_torch(arrays), W)]
@@ -322,6 +343,198 @@ def test_plain_version_matches_xla_and_pallas(W, lq, B):
         n_checked += 1
     assert n_checked >= B // 2
 
+
+# --------------------------------------- the traceback walk, tile by tile
+
+
+def _kernel_tile():
+    """The CUDA traceback's tile constants (query rows, band lanes, tiles
+    per warp, ops staged), read from csrc/sw_batch.cu so that the model
+    below runs as the kernel does."""
+    with open(sw_batch._SRC) as f:
+        src = f.read()
+    return tuple(
+        int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+        for name in ("kTbRows", "kTbWin", "kTbTiles", "kTbOps")
+    )
+
+
+def _pack_block(ops, blk, n):
+    """The kernel's packing of block `blk` (256 steps) of the ops staged in
+    the ring `ops` (bytes, garbage past the walk's end): each 4 bytes read
+    as one little-endian word x, x & 0x03030303 folded to a byte by
+    x | x >> 6 | x >> 12 | x >> 18, four such bytes to a word, and the
+    word's bits for steps >= n cleared."""
+    ring = len(ops)
+    staged = np.array([ops[(blk * 256 + t) % ring] for t in range(256)], np.uint8)
+    x = staged.view("<u4").astype(np.int64) & 0x03030303
+    folded = (x | x >> 6 | x >> 12 | x >> 18) & 0xFF
+    words = (folded.reshape(16, 4) << np.arange(0, 32, 8)).sum(axis=1)
+    first = blk * 256 + 16 * np.arange(16)  # each word's first step
+    keep = np.where(first + 16 <= n, 0xFFFFFFFF, (1 << (2 * np.clip(n - first, 0, 16))) - 1)
+    return (words & keep).astype("<u4").view(np.uint8)
+
+
+def _tiled_walk_model(tb, best, bi, bw, bs, dlos, W, rows, win, n_tiles, n_ops, lanes=32, seed=0):
+    """sw_traceback as the kernel walks, job by job, on numpy arrays.
+
+    A warp of `lanes` lanes walks a run at a time: lane j reads the cell of
+    step n + j if the walk keeps its state until then, from the tile it
+    reads (`rows` query rows by `win` band lanes); the run ends at the first
+    cell outside the tile, not taken, or the first that leaves the state,
+    taken. When the walk's own cell is outside its tile, it enters the tile
+    below (the oldest of the n_tiles - 1 in flight) or, if it left the
+    window, stages n_tiles tiles anew at (i, w) (a re-stage, after the
+    first); a cell outside the band is one step on the clamped cell read
+    from the band itself. Copies land only when the kernel waits for them;
+    tiles hold garbage until then. Ops go into a ring of n_ops bytes, packed
+    256 at a time.
+
+    Returns (packed, n_steps, q0, r0) and counts of stages, re-stages, tiles
+    entered from above, runs and steps outside the band."""
+    B, Lq, _ = tb.shape
+    cap = sw_batch.tb_steps(Lq, W)
+    win = min(win, W)
+    rng = np.random.RandomState(seed)
+    lane = np.arange(lanes)
+
+    def window(w):
+        return min(max((w - win // 2 + 8) & ~15, 0), W - win)
+
+    packed = np.zeros((B, cap // 4), np.uint8)
+    out = np.zeros((3, B), np.int64)
+    counts = dict(stages=0, restages=0, entered=0, runs=0, outside=0)
+    for b in range(B):
+        i, w, state, n = int(bi[b]), int(bw[b]), int(bs[b]), 0
+        ops = rng.randint(0, 256, size=n_ops)  # garbage until written
+        if best[b] > 0 and i >= 0 and cap > 0:
+            tiles = rng.randint(0, 256, size=(n_tiles, rows, win))
+            flight = []  # copy groups in flight, oldest first
+
+            def stage(slot, first, lane0):
+                assert lane0 % 16 == 0 and 0 <= lane0 <= W - win  # 16-byte copies
+                flight.append((slot, first, lane0))
+
+            def wait(keep):
+                while len(flight) > keep:
+                    slot, first, lane0 = flight.pop(0)
+                    for r in range(max(first, 0), first + rows):
+                        tiles[slot, r - first] = tb[b, r, lane0 : lane0 + win]
+
+            cur, base, c0, staged = 0, None, 0, False
+            while True:
+                is_m, is_i = state == 0, state in (1, 3)
+                di = 1 if is_m or is_i else 0
+                dw = 1 if is_i else -1 if state in (2, 4) else 0
+                ebit = 7 if is_m else {1: 3, 2: 4, 3: 5}.get(state, 6)
+                ij, wj = i - lane * di, w + lane * dw
+                inside = (ij >= 0) & (n + lane < cap)
+                if base is not None:
+                    inside &= (ij - base >= 0) & (ij - base < rows) & (wj - c0 >= 0) & (wj - c0 < win)
+                else:
+                    inside &= False
+                byte = np.where(inside, tiles[cur % n_tiles, np.clip(ij - (base or 0), 0, rows - 1), np.clip(wj - c0, 0, win - 1)], 0)
+                pred, e = byte & 7, (byte >> ebit) & 1
+                stays = ((pred == 1) | (pred >= 6)) if is_m else e == 1
+                stops = ~inside | (inside & ~stays)
+                first = int(np.argmax(stops)) if stops.any() else lanes
+                left = first < lanes and bool(inside[first])
+                k = first + left
+                if k > 0:
+                    counts["runs"] += 1
+                    op = np.where(byte >> 7, sw_batch.OP_EQ, sw_batch.OP_X) if is_m else np.full(lanes, sw_batch.OP_I if is_i else sw_batch.OP_D)
+                    for j in range(k):
+                        ops[(n + j) % n_ops] = op[j]
+                    nstate, done = state, False
+                    if left:
+                        lp = int(pred[first])
+                        nstate = (lp - 1 if 1 <= lp <= 5 else 0) if is_m else 0
+                        done = is_m and lp == 0
+                    steps = k
+                elif i < Lq and 0 <= w < W:
+                    if staged and 0 <= i - (base - rows) < rows and 0 <= w - c0 < win:
+                        wait(n_tiles - 2)
+                        cur, base = cur + 1, base - rows
+                        counts["entered"] += 1
+                        stage((cur - 1) % n_tiles, base - (n_tiles - 1) * rows, c0)
+                    else:
+                        counts["restages"] += staged
+                        counts["stages"] += 1
+                        staged = True
+                        wait(0)
+                        cur, base, c0 = 0, i - rows + 1, window(w)
+                        for slot in range(n_tiles):
+                            stage(slot, base - slot * rows, c0)
+                        wait(n_tiles - 1)
+                    continue
+                else:
+                    counts["outside"] += 1
+                    gb = int(tb[b, min(i, Lq - 1), min(max(w, 0), W - 1)])
+                    gp, ge = gb & 7, (gb >> ebit) & 1
+                    ops[n % n_ops] = (sw_batch.OP_EQ if gb >> 7 else sw_batch.OP_X) if is_m else sw_batch.OP_I if is_i else sw_batch.OP_D
+                    nstate = (gp - 1 if 1 <= gp <= 5 else 0) if is_m else (state if ge else 0)
+                    done = is_m and gp == 0
+                    steps = 1
+                n0 = n
+                i, w, n, state = i - steps * di, w + steps * dw, n + steps, nstate
+                if n0 // 256 != n // 256:
+                    blk = n0 // 256
+                    packed[b, blk * 64 : blk * 64 + 64] = _pack_block(ops, blk, n)
+                if done or i < 0 or n >= cap:
+                    break
+        if n % 256:
+            blk = n // 256
+            packed[b, blk * 64 : blk * 64 + 64] = _pack_block(ops, blk, n)
+        out[:, b] = n, i + 1, i + 1 + int(dlos[b]) + w
+    return (packed, *out), counts
+
+
+def _dp_band(W, lq, B):
+    """A DP-made band with its walk starts: sw_dp_reference on _edge_batch,
+    as numpy arrays (tb, best, bi, bw, bs, dlos)."""
+    arrays = _edge_batch(W, lq, B)
+    tb, best, bi, bw, bs = (t.numpy() for t in sw_batch.sw_dp_reference(*_torch(arrays), W))
+    return tb, best, bi, bw, bs, arrays[3]
+
+
+@pytest.mark.parametrize("W,lq,B", [(64, 96, 40), (256, 192, 24)])
+def test_plain_walk_matches_xla_on_random_bytes(W, lq, B):
+    tb, best, bi, bw, bs, dlos = random_band(W, lq, B, seed=W + lq)
+    # the JAX walk reads the scan-major (Lq, B, W) band
+    walk = jax.jit(_traceback_batch, static_argnums=(1, 2, 7))
+    packed, n, q0, fw = (np.asarray(x) for x in walk(tb.transpose(1, 0, 2), B, lq, best, bi, bw, bs, W))
+    got = [t.numpy() for t in sw_batch.sw_traceback_reference(*_torch((tb, best, bi, bw, bs, dlos)), W)]
+    for name, g, x in zip(("packed", "n_steps", "q0", "r0"), got, (packed, n, q0, q0 + dlos + fw)):
+        np.testing.assert_array_equal(g, x, err_msg=name)
+    # long walks: some reach the step cap, some end early, some never start
+    cap = sw_batch.tb_steps(lq, W)
+    assert (n == cap).any() and ((n > 0) & (n < cap)).any() and (n == 0).any()
+
+
+@pytest.mark.parametrize("tile", ["small", "kernel"])
+@pytest.mark.parametrize("W", [64, 128, 256])
+def test_tiled_walk_model_matches_plain_version(W, tile):
+    # the small tile (4 rows, one 16-byte chunk of lanes, one tile in flight,
+    # runs of at most 8 steps) misses often: the walk leaves its window and
+    # crosses tiles mid-run
+    if tile == "small":
+        shape = dict(rows=4, win=16, n_tiles=2, n_ops=512, lanes=8)
+    else:
+        shape = dict(zip(("rows", "win", "n_tiles", "n_ops"), _kernel_tile()))
+    counts = {}
+    for name, band in (("random", random_band(W, 96, 24, seed=W + 1)), ("dp", _dp_band(W, 640, 24))):
+        got, counts[name] = _tiled_walk_model(*band, W, **shape)
+        ref = sw_batch.sw_traceback_reference(*_torch(band), W)
+        for out, g, r in zip(("packed", "n_steps", "q0", "r0"), got, ref):
+            np.testing.assert_array_equal(g, r.numpy(), err_msg=f"{name} {out}")
+        assert counts[name]["stages"] > 0, name
+    # DP-made walks cross tiles; random ones leave the window and the band
+    # (their reads there are clamped)
+    assert counts["dp"]["entered"] > 0 and counts["random"]["outside"] > 0
+    if tile == "small":
+        assert counts["random"]["restages"] > 0
+    if tile == "kernel":  # DP-made walks take several steps per run
+        assert counts["dp"]["runs"] * 4 < got[1].sum()
 
 def test_dp_and_traceback_split_matches_fused():
     W, lq, B = 64, 128, 16
@@ -395,9 +608,24 @@ def test_aligner_map_reads_and_diagonals_match_jax(monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "W,lq,B", [(64, 128, 24), (128, 256, 9), (256, 192, 37), (256, 1024, 96)]
+    "W,lq,B,band",
+    [
+        (64, 128, 24, "dp"),
+        (128, 256, 9, "dp"),
+        (256, 192, 37, "dp"),
+        (256, 1024, 96, "dp"),
+        (256, 512, 300, "random"),
+    ],
 )
-def test_kernels_match_plain_version_on_gpu(W, lq, B, cuda_device):
+def test_kernels_match_plain_version_on_gpu(W, lq, B, band, cuda_device):
+    if band == "random":  # random traceback bytes: the walk alone
+        args = _torch(random_band(W, lq, B, seed=B), cuda_device)
+        got = sw_batch.sw_traceback(*args, W)
+        ref = sw_batch.sw_traceback_reference(*args, W)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+        return
     arrays = _torch(_edge_batch(W, lq, B), cuda_device)
     tb, best, bi, bw, bs = sw_batch.sw_dp(*arrays, W)
     ref_dp = sw_batch.sw_dp_reference(*arrays, W)
