@@ -1,18 +1,24 @@
 """amira-tpu-torch: the PyTorch/CUDA port of the amira-tpu AMR-gene engine.
 
-This package runs the main path of `amira_tpu` (pandora JSON gene calls +
-FASTQ reads -> gene-mer graph -> cleaning -> AMR path clustering -> allele
-polishing -> copy number -> `amira_results.tsv`) with PyTorch on an NVIDIA
-GPU, and with PyTorch's CPU ops for testing. Module names and layout mirror
-`amira_tpu/`, so each module here has its counterpart there.
+This package runs every single-isolate feature of `amira_tpu` (pandora
+JSON or SAM gene calls, or pandora map, + FASTQ reads or an assembly ->
+gene-mer graph -> cleaning -> AMR path clustering -> allele polishing ->
+copy number -> `amira_results.tsv`, with the --meta, --promoter-mutations,
+--assemble-paths and --debug options) with PyTorch on an NVIDIA GPU, and
+with PyTorch's CPU ops for testing. Multi-device graph builds
+(--dist-build) and the batch entry point (`batch.py`) are not ported yet.
+Module names and layout mirror `amira_tpu/`, so each module here has its
+counterpart there.
 
 What moved and how:
 
 * Host-only modules (`vocab`, `io`, `sketch`, `stree`, `graph_cache`,
   `correct`, `clean`, `bubbles`, `bubble_view`, `cluster`,
-  `ops/host_tables`, `ops/consensus`, `preprocess`) are copies of their
-  `amira_tpu` counterparts with only the package-internal import lines
-  changed. They are copied rather than imported because importing any
+  `ops/host_tables`, `ops/consensus`, `preprocess`, `assembly`,
+  `promoters`) and the C source of the host I/O helper
+  (`native/_fastio.c`) are copies of their `amira_tpu` counterparts with
+  only the package-internal import lines changed and `device` passed down
+  to the aligner. They are copied rather than imported because importing any
   `amira_tpu.*` module runs `amira_tpu/__init__.py`, which imports JAX and
   switches on 64-bit mode for the whole process.
 * Device code is torch: gene-mer window hashing (`ops/hashing`,
@@ -22,9 +28,9 @@ What moved and how:
 * The device is always explicit: `--device {cuda,cpu}` on the CLI, a
   `device` argument below it. Asking for cuda without a GPU raises.
 
-Two things are read from the JAX package's directory by path, never by
-import: the species asset pack (`amira_tpu/assets/<species>/`) and the C
-source of the host I/O helper (`amira_tpu/native/_fastio.c`).
+One thing is read from the JAX package's directory by path, never by
+import: the species asset pack (`amira_tpu/assets/<species>/`), which is
+data, not code.
 """
 
 from __future__ import annotations

@@ -26,7 +26,7 @@
 //   * A block holds kDpWarps = 4 independent warps, the fastest of 1, 2 and
 //     4 on an H100 at the main path's large launches, (B, Lq) = (980, 1024)
 //     and (490, 1024), and at B = 128..2048, Lq = 2048 (PERF.md). Lane l owns
-//     the strip of band lanes w = l*S + s, s < S = W/32 (W = 64, 128, 256),
+//     the strip of band lanes w = l*S + s, s < S = W/32 (W = 64 to 512),
 //     and keeps its previous-row state in registers. The row loop stops at
 //     the job's query length: rows past it are dead (all-NEG) in the
 //     reference, can neither raise the best nor be reached by the
@@ -63,6 +63,9 @@
 //     loads one new byte, prefetched a row ahead with the query byte.
 //   * Each thread packs its S traceback bytes into one store, so a warp
 //     writes one coalesced W-byte row of the (B, Lq, W) uint8 layout.
+//   * At W = 512 (S = 16, the assembly's polishing band) a thread keeps 16
+//     lanes of each carried quantity in registers, twice W = 256's; ptxas's
+//     report (chip_smoke.py phase 1) says whether that instance spills.
 //
 // What bounds sw_dp on this card: at (B, Lq, W) = (512, 2048, 256) with
 // query lengths 1536-2048 it has about 233 M live cells. Writing one
@@ -345,8 +348,10 @@ __global__ void __launch_bounds__(kDpWarps * 32)
                    (bits[4 * g + 2] << 16) | (bits[4 * g + 3] << 24);
       if constexpr (S == 4) {
         *reinterpret_cast<uint32_t*>(row) = words[0];
-      } else {
+      } else if constexpr (S == 8) {
         *reinterpret_cast<uint2*>(row) = make_uint2(words[0], words[1]);
+      } else {
+        *reinterpret_cast<uint4*>(row) = make_uint4(words[0], words[1], words[2], words[3]);
       }
     }
 
@@ -621,6 +626,10 @@ int sw_dp_launch(const void* qs, const void* rs, const void* qlens,
       sw_dp_kernel<8><<<blocks, threads, 0, st>>>(q, r, ql, dl, B, Lq, Lr, t,
                                                   o0, o1, o2, o3);
       break;
+    case 512:
+      sw_dp_kernel<16><<<blocks, threads, 0, st>>>(q, r, ql, dl, B, Lq, Lr, t,
+                                                   o0, o1, o2, o3);
+      break;
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -642,6 +651,9 @@ int sw_traceback_launch(const void* tb, const void* best, const void* bi,
                                    packed, n_steps, q0, r0, st);
     case 256:
       return launch_traceback<256>(tb, best, bi, bw, bs, dlos, B, Lq, max_steps,
+                                   packed, n_steps, q0, r0, st);
+    case 512:
+      return launch_traceback<512>(tb, best, bi, bw, bs, dlos, B, Lq, max_steps,
                                    packed, n_steps, q0, r0, st);
     default:
       return (int)cudaErrorInvalidValue;

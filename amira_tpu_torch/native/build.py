@@ -1,8 +1,8 @@
 """Build the native host-runtime helper (_fastio) for the port.
 
-Compiles the JAX package's C source, `amira_tpu/native/_fastio.c` (read by
-path), into `amira_tpu_torch/_build/` and loads it with importlib. Nothing
-is written into `amira_tpu/native/`. `load()` returns the module, or None
+Compiles the port's copy of the JAX package's C source,
+`amira_tpu_torch/native/_fastio.c`, into `amira_tpu_torch/_build/` and loads
+it with importlib. `load()` returns the module, or None
 when the build fails (callers then use their pure-Python fallbacks, as the
 JAX package does); set AMIRA_TPU_NO_NATIVE to skip it.
 """
@@ -16,9 +16,9 @@ import subprocess
 import sys
 import sysconfig
 
-from .. import BUILD_DIR, REFERENCE_PACKAGE_DIR
+from .. import BUILD_DIR
 
-_SRC = os.path.join(REFERENCE_PACKAGE_DIR, "native", "_fastio.c")
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_fastio.c")
 
 
 def _so_path() -> str:

@@ -128,54 +128,6 @@ def reverse_complement(seq: str) -> str:
 _KMER_SENTINEL = np.uint64(1) << np.uint64(62)
 
 
-def _seed_chains(
-    qcodes, ref_index, k=15, band_width=256, max_occ=8, max_chains=4,
-    qkmers=None,
-):
-    """Cluster shared-k-mer diagonals into chains (minimap2's chaining stage).
-
-    All ref occurrences of each query k-mer (capped at max_occ to skip
-    repeats) contribute a (diagonal = ref_pos - q_pos) hit; hits are grouped
-    into chains wherever consecutive sorted diagonals jump by more than half
-    the band width. Returns up to max_chains (median_diag, n_seeds) tuples
-    sorted by seed count descending — each gets its own banded extension, so
-    a structural gap wider than the band shows up as two chains that the
-    stitcher rejoins. `qkmers` lets callers that probe MANY references with
-    one query pass the query's (kmers, positions) once instead of
-    re-extracting per reference."""
-    if qkmers is None:
-        qkmers = query_seed_kmers(qcodes, k)
-    qk, qpos = qkmers
-    if len(qk) == 0:
-        return []
-    rk_codes, rk_pos = ref_index
-    if len(rk_codes) == 0:
-        return []
-    lo = np.searchsorted(rk_codes, qk, side="left")
-    hi = np.searchsorted(rk_codes, qk, side="right")
-    counts = hi - lo
-    keep = (counts > 0) & (counts <= max_occ)
-    if not keep.any():
-        return []
-    reps = counts[keep]
-    total = int(reps.sum())
-    # expand [lo, hi) ranges without a Python loop
-    starts = np.repeat(lo[keep], reps)
-    offsets = np.concatenate([[0], np.cumsum(reps)[:-1]])
-    within = np.arange(total, dtype=np.int64) - np.repeat(offsets, reps)
-    diags = rk_pos[starts + within] - np.repeat(qpos[keep], reps)
-    order = np.argsort(diags, kind="stable")
-    d_sorted = diags[order]
-    breaks = np.nonzero(np.diff(d_sorted) > band_width // 2)[0] + 1
-    bounds = np.concatenate([[0], breaks, [total]])
-    chains = []
-    for b0, b1 in zip(bounds[:-1], bounds[1:]):
-        seg = d_sorted[b0:b1]
-        chains.append((int(np.median(seg)), int(b1 - b0)))
-    chains.sort(key=lambda c: -c[1])
-    return chains[:max_chains]
-
-
 def query_seed_kmers(qcodes: np.ndarray, k: int = 15):
     """One query's valid forward k-mers + their positions (the per-query
     half of seed chaining, extracted once per strand)."""
@@ -437,21 +389,110 @@ def _stitch_pieces(pieces):
     return max(parts, key=lambda a: a.score)
 
 
-class _LazySeedIndex:
-    """Per-reference seed index built on first access."""
+class _SeedIndex:
+    """One seed index over every reference: each valid k-mer of each
+    reference as (k-mer, reference id, position), sorted in that order. A
+    query strand's k-mers find their hits on all references at once (the
+    JAX package searches each reference's own index in turn): the top
+    `bits` bits of a k-mer name its bucket, and `start` holds where each
+    bucket begins in the sorted arrays, so a lookup is two gathers and a
+    compare over the few entries that share the bucket."""
 
-    __slots__ = ("_aligner",)
+    __slots__ = ("kmers", "ref", "pos", "shift", "start")
 
-    def __init__(self, aligner):
-        self._aligner = aligner
+    def __init__(self, codes: list, k: int):
+        # the references back to back, each followed by k invalid codes, so
+        # that no valid window spans two of them
+        sep = np.full(k, 255, dtype=np.uint8)
+        parts = [p for c in codes for p in (c, sep)]
+        cat = np.concatenate(parts) if parts else np.zeros(0, dtype=np.uint8)
+        starts = np.cumsum([0] + [len(c) + k for c in codes[:-1]]).astype(np.int64)
+        km = _forward_kmers(cat, k)
+        at = np.nonzero(km != _KMER_SENTINEL)[0].astype(np.int64)
+        # stable: equal k-mers stay in (reference, position) order
+        order = np.argsort(km[at], kind="stable")
+        at = at[order]
+        self.kmers = km[at]
+        self.ref = np.searchsorted(starts, at, side="right") - 1
+        self.pos = at - starts[self.ref]
+        # about two buckets per entry, at most one per k-mer
+        bits = min(max(len(self.kmers).bit_length() + 1, 8), 2 * k)
+        self.shift = np.uint64(2 * k - bits)
+        counts = np.bincount(
+            (self.kmers >> self.shift).astype(np.int64), minlength=1 << bits
+        )
+        self.start = np.concatenate([[0], np.cumsum(counts)])
 
-    def __getitem__(self, name):
-        a = self._aligner
-        idx = a._seed_cache.get(name)
-        if idx is None:
-            idx = build_ref_seed_index(a.ref_codes[name], a.seed_k)
-            a._seed_cache[name] = idx
-        return idx
+    def chains(self, qkmers, band_width, max_occ=8, max_chains=4, allowed=None):
+        """The seed chains of one query strand against every reference at
+        once (minimap2's chaining stage): all occurrences of each query
+        k-mer in a reference, unless there are more than `max_occ`, give a
+        diagonal (ref_pos - q_pos), and a reference's sorted diagonals split
+        into chains where they jump by more than half the band. Returns
+        (ref, diag, count) arrays of each reference's first `max_chains`
+        chains (median diagonal, seed count), grouped by reference id
+        ascending and, within a reference, in the order of the JAX
+        package's `_seed_chains` (seed count descending, then diagonal). A
+        reference's chains depend only on the multiset of its kept
+        diagonals (the median of each sorted run and the stable sort by
+        count), which is what this computes. `allowed` is an optional bool
+        mask over reference ids."""
+        qk, qpos = qkmers
+        empty = np.zeros(0, dtype=np.int64)
+        if len(qk) == 0 or len(self.kmers) == 0:
+            return empty, empty, empty
+        # each query k-mer against every entry of its bucket; the entries
+        # equal to it are its hits, in index order
+        bucket = (qk >> self.shift).astype(np.int64)
+        lo = self.start[bucket]
+        n = self.start[bucket + 1] - lo
+        total = int(n.sum())
+        if total == 0:
+            return empty, empty, empty
+        q_id = np.repeat(np.arange(len(qk)), n)
+        hit = np.repeat(lo - (np.cumsum(n) - n), n) + np.arange(total)
+        same = self.kmers[hit] == qk[q_id]
+        hit, q_id = hit[same], q_id[same]
+        total = len(hit)
+        if total == 0:
+            return empty, empty, empty
+        ref = self.ref[hit]
+        qp = qpos[q_id]
+        # occurrences of one query k-mer in one reference are one run of
+        # its hits: drop runs longer than max_occ (repeats)
+        cut = np.flatnonzero((q_id[1:] != q_id[:-1]) | (ref[1:] != ref[:-1])) + 1
+        run_len = np.diff(np.concatenate([[0], cut, [total]]))
+        keep = np.repeat(run_len <= max_occ, run_len)
+        if allowed is not None:
+            keep &= allowed[ref]
+        ref = ref[keep]
+        diag = self.pos[hit[keep]] - qp[keep]
+        if len(ref) == 0:
+            return empty, empty, empty
+        order = np.lexsort((diag, ref))
+        ref, diag = ref[order], diag[order]
+        # chains: runs of one reference's sorted diagonals split where they
+        # jump by more than half the band
+        cut = np.flatnonzero(
+            (ref[1:] != ref[:-1]) | (np.diff(diag) > band_width // 2)
+        ) + 1
+        s0 = np.concatenate([[0], cut])
+        s1 = np.concatenate([cut, [len(ref)]])
+        count = s1 - s0
+        # int(np.median(run)): the mean of the two middle values, truncated
+        med = np.trunc(
+            (diag[s0 + (count - 1) // 2] + diag[s0 + count // 2]) / 2.0
+        ).astype(np.int64)
+        cref = ref[s0]
+        order = np.lexsort((np.arange(len(count)), -count, cref))
+        cref, med, count = cref[order], med[order], count[order]
+        first = np.concatenate([[True], cref[1:] != cref[:-1]])
+        group_start = np.maximum.accumulate(
+            np.where(first, np.arange(len(cref)), 0)
+        )
+        rank = np.arange(len(cref)) - group_start
+        keep = rank < max_chains
+        return cref[keep], med[keep], count[keep]
 
 
 class Aligner:
@@ -469,10 +510,10 @@ class Aligner:
         self.ref_names = list(references.keys())
         self.ref_seqs = {n: references[n] for n in self.ref_names}
         self.ref_codes = {n: encode_dna(references[n]) for n in self.ref_names}
-        # seed indexes build on first use: diagonal-reuse callers
-        # (map_with_diagonals) never pay for them
-        self._seed_cache: dict = {}
-        self.ref_seed_index = _LazySeedIndex(self)
+        self._ref_id = {n: i for i, n in enumerate(self.ref_names)}
+        # the seed index builds on first use: diagonal-reuse callers
+        # (map_with_diagonals) never pay for it
+        self._seed_index = None
 
     def map_with_diagonals(self, reads: dict[str, str], targets: dict):
         """Map each read against ONE reference on a known band placement —
@@ -512,25 +553,50 @@ class Aligner:
         return self.map_reads({"q": seq}, min_seeds).get("q", {})
 
     def _jobs_for(self, rid, seq, min_seeds, allowed=None):
-        jobs = []  # (job_tag, strand, qseq, dlo) with job_tag = (rid, ref)
-        names = self.ref_names if allowed is None else allowed
+        """Alignment jobs of one read: for each strand, each reference (in
+        `allowed` order, else the aligner's) and each of its seed chains
+        with enough support, (job_tag, strand, qseq, diag) with job_tag =
+        (rid, ref). The same list, in the same order, as the JAX package's
+        loop over `_seed_chains` per reference, from one seed index."""
+        if self._seed_index is None:
+            self._seed_index = _SeedIndex(
+                [self.ref_codes[n] for n in self.ref_names], self.seed_k
+            )
+        mask = None
+        if allowed is not None:
+            mask = np.zeros(len(self.ref_names), dtype=bool)
+            ids = [self._ref_id[n] for n in allowed]
+            mask[ids] = True
+        jobs = []
         for strand, qseq in (("+", seq), ("-", reverse_complement(seq))):
-            qcodes = encode_dna(qseq)
-            qkmers = query_seed_kmers(qcodes, self.seed_k)
-            for name in names:
-                chains = _seed_chains(
-                    qcodes, self.ref_seed_index[name],
-                    self.seed_k, self.band_width, qkmers=qkmers,
+            qkmers = query_seed_kmers(encode_dna(qseq), self.seed_k)
+            ref, diag, count = self._seed_index.chains(
+                qkmers, self.band_width, allowed=mask
+            )
+            if len(ref) == 0:
+                continue
+            # secondary chains need real support relative to the primary
+            # (a reference's first chain), or noise spawns spurious
+            # extension jobs
+            first = np.concatenate([[True], ref[1:] != ref[:-1]])
+            top = count[np.maximum.accumulate(
+                np.where(first, np.arange(len(ref)), 0)
+            )]
+            ok = (count >= min_seeds) & (count * 20 >= top)
+            ref, diag = ref[ok].tolist(), diag[ok].tolist()
+            if allowed is None:
+                names = self.ref_names
+                jobs.extend(
+                    ((rid, names[r]), strand, qseq, d) for r, d in zip(ref, diag)
                 )
-                if not chains:
-                    continue
-                top = chains[0][1]
-                for diag, cnt in chains:
-                    # secondary chains need real support relative to the
-                    # primary, or noise spawns spurious extension jobs
-                    if cnt < min_seeds or cnt * 20 < top:
-                        continue
-                    jobs.append(((rid, name), strand, qseq, diag))
+                continue
+            by_ref: dict = {}
+            for r, d in zip(ref, diag):
+                by_ref.setdefault(r, []).append(d)
+            for name, r in zip(allowed, ids):
+                jobs.extend(
+                    ((rid, name), strand, qseq, d) for d in by_ref.get(r, ())
+                )
         return jobs
 
     def _run_jobs(self, jobs):

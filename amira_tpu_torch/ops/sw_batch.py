@@ -21,7 +21,7 @@ Beside each kernel is its plain PyTorch version (`sw_dp_reference`,
 with `torch.cummax` for the deletion recurrences, and a vectorised walk. The
 wrappers use the plain versions only for tensors on the CPU; for CUDA
 tensors they launch the kernels or raise. `LAUNCHES` counts kernel launches
-and `DP_SHAPES` counts sw_dp launches by (B, Lq); `traceback_restages()`
+and `DP_SHAPES` counts sw_dp launches by (B, Lq, W); `traceback_restages()`
 reads the traceback kernel's count of re-stages (tiles it had to stage and
 wait for because a walk left the window of lanes it was reading).
 """
@@ -51,13 +51,13 @@ from .align import (
 _SRC = os.path.join(PACKAGE_DIR, "csrc", "sw_batch.cu")
 
 # kernel launches by the wrappers below (never by the plain versions), and
-# sw_dp launches by (B, Lq)
+# sw_dp launches by (B, Lq, W)
 LAUNCHES = {"sw_dp": 0, "sw_traceback": 0}
 DP_SHAPES: collections.Counter = collections.Counter()
 
-# band widths the DP kernel is instantiated for (W = 32 * S band lanes, S per
-# thread of a warp)
-DP_WIDTHS = (64, 128, 256)
+# band widths both kernels are instantiated for (W = 32 * S band lanes, S per
+# thread of a warp): the aligner's 256, the assembly's polishing band 512
+DP_WIDTHS = (64, 128, 256, 512)
 
 # op codes of the packed traceback (2 bits each, 4 per byte, step order)
 OP_EQ, OP_X, OP_I, OP_D = 0, 1, 2, 3
@@ -153,8 +153,9 @@ def sw_dp(qs, rs, qlens, dlos, W: int):
     rows at or past a job's qlen are unspecified (never read).
 
     The kernel takes W in DP_WIDTHS, and Lq with 2*Lq < 2^(29 - log2 W)
-    (2^21 at W = 256): its row maximum packs the score into
-    32 - log2(W) - 3 bits of a key. It raises ValueError past either limit."""
+    (Lq < 2^20 at W = 256, Lq < 2^19 = 524,288 at W = 512): its row maximum
+    packs the score into 32 - log2(W) - 3 bits of a key. It raises
+    ValueError past either limit."""
     if qs.device.type == "cpu":
         return sw_dp_reference(qs, rs, qlens, dlos, W)
     if qs.device.type != "cuda":
@@ -183,7 +184,7 @@ def sw_dp(qs, rs, qlens, dlos, W: int):
     )
     _raise_on(err, "sw_dp")
     LAUNCHES["sw_dp"] += 1
-    DP_SHAPES[(B, Lq)] += 1
+    DP_SHAPES[(B, Lq, W)] += 1
     return tb, best, bi, bw, bs
 
 

@@ -5,17 +5,21 @@ trimming/junk removal -> k selection -> iterative cleaning (filter, correct,
 tips, bubbles) -> final graph -> AMR path clustering -> per-allele polish +
 closest-reference matching -> k-mer copy numbers -> filtered results TSV.
 
-Port of `amira_tpu/pipeline.py` for the main path: pandora JSON gene calls
-plus FASTQ reads. `args.device` (a torch device name, "cuda" or "cpu") is
-resolved once and passed down to the graph-build cache, the aligner and the
-k-mer table; the phase timer synchronises on it. Graph builds are
-single-device. The features outside this path raise NotImplementedError
-before anything runs (`check_ported`).
+Port of `amira_tpu/pipeline.py`: every single-isolate route and mode
+(pandora JSON or SAM gene calls, or pandora map; FASTQ reads or an
+assembly; --meta, --promoter-mutations, --assemble-paths, --debug).
+`args.device` (a torch device name, "cuda" or "cpu") is resolved once and
+passed down to the graph-build cache, the aligner (the SAM route's
+consensus QC, polishing, promoters, path assembly) and the k-mer table; the
+phase timer synchronises on it. Graph builds are single-device:
+--dist-build raises NotImplementedError before anything runs
+(`check_ported`).
 """
 
 from __future__ import annotations
 
 import os
+import subprocess
 import sys
 import time
 
@@ -27,15 +31,19 @@ from .graph_utils import (
     iterative_bubble_popping,
 )
 from .io import (
+    parse_fasta,
     parse_fastq,
     plot_read_length_distribution,
+    write_fastq,
     write_modified_fastq,
 )
 from .preprocess import (
+    convert_pandora_output,
     estimate_mean_core_gene_counts,
     load_species_specific_files,
     process_pandora_json,
     process_reference_alleles,
+    subsample_reads_and_estimate_read_depth,
 )
 from .results import (
     estimate_copy_numbers,
@@ -57,26 +65,44 @@ from .vocab import GeneVocab
 
 
 def check_ported(args) -> None:
-    """Raise NotImplementedError for a feature outside the ported path
-    (pandora JSON gene calls + FASTQ reads, single-device graph builds)."""
-    used = [
-        flag
-        for flag, on in (
-            ("--pandoraSam", args.pandoraSam is not None),
-            ("--assembly", args.assembly is not None),
-            ("--promoter-mutations", args.promoters),
-            ("--assemble-paths", args.assemble_paths),
-            ("--meta", args.meta),
-            ("--dist-build", args.dist_build is True),
-        )
-        if on
-    ]
-    if args.pandoraJSON is None:
-        used.append("gene calls other than --pandoraJSON (pandora map, SAM)")
-    if used:
+    """Raise NotImplementedError for a feature outside the ported path:
+    multi-device graph builds (--dist-build)."""
+    if args.dist_build is True:
         raise NotImplementedError(
-            f"amira_tpu_torch: {', '.join(used)} not yet ported (use amira_tpu)"
+            "amira_tpu_torch: --dist-build not yet ported (use amira_tpu)"
         )
+
+
+def run_pandora_map(
+    pandora_path, panRG_path, readfile, outdir, cores, seed, assembly, species, meta
+):
+    """Shell out to the external pandora gene caller
+    (pre_processing.py:13-35); its SAM/consensus are the ingestion contract."""
+    import glob
+
+    command = (
+        f"{pandora_path} map -t {cores} --min-gene-coverage-proportion 0.5 "
+        f"--max-covg 10000 -o {os.path.join(outdir, 'pandora_output')} "
+        f"{panRG_path} {readfile} --rng-seed {seed} "
+    )
+    if assembly is not None or meta is True:
+        command += "--no-gene-coverage-filtering"
+    else:
+        command += "--min-abs-gene-coverage 1"
+    if not os.path.exists(panRG_path):
+        sys.stderr.write("\namira-tpu: panRG file does not exist.\n")
+        sys.exit(1)
+    if ".panidx.zip" not in panRG_path:
+        sys.stderr.write("\namira-tpu: panRG file does not end in .panidx.zip.\n")
+        sys.exit(1)
+    subprocess.run(command, shell=True, check=True)
+    pandoraSam = glob.glob(
+        os.path.join(outdir, "pandora_output", "*.filtered.sam")
+    )[0]
+    pandoraConsensus = os.path.join(
+        outdir, "pandora_output", "pandora.consensus.fq.gz"
+    )
+    return pandoraSam, pandoraConsensus
 
 
 def build_and_correct_graph(
@@ -164,8 +190,8 @@ def build_and_correct_graph(
 
 
 def run_pipeline(args) -> None:
-    """The main path of the pipeline (reference main(),
-    __main__.py:417-804) on `args.device`."""
+    """The full pipeline (reference main(), __main__.py:417-804) on
+    `args.device`."""
     check_ported(args)
     start_time = time.time()
     device = resolve_device(getattr(args, "device", "cuda"))
@@ -182,25 +208,83 @@ def run_pipeline(args) -> None:
         )
     )
     reference_alleles, genesOfInterest = process_reference_alleles(
-        AMR_gene_reference_FASTA, False
+        AMR_gene_reference_FASTA, args.promoters
     )
-    if not args.quiet:
-        sys.stderr.write("\namira-tpu: loading FASTQ file.\n")
-    with phase("load_fastq"):
-        fastq_content = parse_fastq(args.reads)
-    _read_fastq_path, fastq_content = write_modified_fastq(
-        fastq_content, args.reads, args.output_dir
-    )
+    if args.reads is not None:
+        if not args.quiet:
+            sys.stderr.write("\namira-tpu: loading FASTQ file.\n")
+        with phase("load_fastq"):
+            fastq_content = parse_fastq(args.reads)
+        read_fastq_path, fastq_content = write_modified_fastq(
+            fastq_content, args.reads, args.output_dir
+        )
+    else:
+        if not args.quiet:
+            sys.stderr.write("\namira-tpu: loading FASTA file.\n")
+        fastq_content = parse_fasta(args.assembly)
+        read_fastq_path = os.path.join(args.output_dir, "assembly.fq.gz")
+        write_fastq(read_fastq_path, fastq_content)
+
+    pandoraSam = args.pandoraSam
+    pandoraConsensus = args.pandoraConsensus
+    if pandoraSam is None and args.pandoraJSON is None:
+        if not args.quiet:
+            sys.stderr.write("\namira-tpu: running Pandora map.\n")
+        pandoraSam, pandoraConsensus = run_pandora_map(
+            args.pandora_path, args.panRG_path, read_fastq_path,
+            args.output_dir, args.cores, args.seed, args.assembly,
+            args.species, args.meta,
+        )
 
     with phase("ingest_gene_calls"):
-        annotatedReads, sample_genesOfInterest, gene_position_dict = (
-            process_pandora_json(
-                args.pandoraJSON, genesOfInterest, args.gene_positions
+        if args.pandoraJSON:
+            annotatedReads, sample_genesOfInterest, gene_position_dict = (
+                process_pandora_json(
+                    args.pandoraJSON, genesOfInterest, args.gene_positions
+                )
             )
-        )
-        annotatedReads = dict(sorted(annotatedReads.items()))
-        mean_read_depth = estimate_mean_core_gene_counts(annotatedReads, core_genes)
-        sys.stderr.write(f"\namira-tpu: mean read depth = {mean_read_depth}.\n")
+            annotatedReads = dict(sorted(annotatedReads.items()))
+            mean_read_depth = estimate_mean_core_gene_counts(annotatedReads, core_genes)
+            sys.stderr.write(f"\namira-tpu: mean read depth = {mean_read_depth}.\n")
+        else:
+            pandora_consensus = parse_fastq(pandoraConsensus)
+            (
+                annotatedReads,
+                sample_genesOfInterest,
+                gene_position_dict,
+                consensus_depths,
+            ) = convert_pandora_output(
+                pandoraSam,
+                pandora_consensus,
+                genesOfInterest,
+                args.gene_min_coverage,
+                args.lower_gene_length_threshold,
+                args.upper_gene_length_threshold,
+                fastq_content,
+                device=device,
+            )
+            annotatedReads = dict(sorted(annotatedReads.items()))
+            if args.sample_reads is True:
+                annotatedReads, mean_read_depth = (
+                    subsample_reads_and_estimate_read_depth(
+                        annotatedReads, args.sample_size, core_genes,
+                        args.seed, consensus_depths,
+                    )
+                )
+            else:
+                mean_read_depth = estimate_mean_core_gene_counts(
+                    annotatedReads, core_genes
+                )
+            write_pandora_gene_calls(
+                args.output_dir,
+                gene_position_dict,
+                annotatedReads,
+                os.path.join(args.output_dir, "gene_calls_with_gene_filtering.json"),
+                os.path.join(args.output_dir, "gene_positions_with_gene_filtering.json"),
+            )
+            sys.stderr.write(
+                f"\namira-tpu: mean read depth across core genes = {mean_read_depth}.\n"
+            )
     if len(sample_genesOfInterest) == 0:
         write_empty_result(args.output_dir)
         sys.exit(0)
@@ -245,38 +329,43 @@ def run_pipeline(args) -> None:
     except (ValueError, IndexError):
         min_path_coverage = 10
     node_min_coverage = args.node_min_coverage
-    graph.filter_graph(2, 1)
-    new_annotatedReads, new_gene_position_dict, _rej, _rejp = (
-        graph.remove_junk_reads(0.80)
-    )
+    if args.reads is not None and args.meta is False:
+        graph.filter_graph(2, 1)
+        new_annotatedReads, new_gene_position_dict, _rej, _rejp = (
+            graph.remove_junk_reads(0.80)
+        )
     if not args.quiet:
         sys.stderr.write(
             "\namira-tpu: removing low coverage components and nodes with "
             f"coverage < {node_min_coverage}.\n"
         )
-    with phase("graph_cleaning", items=len(new_annotatedReads), unit="reads"):
-        (
-            new_annotatedReads,
-            new_gene_position_dict,
-            geneMer_size,
-            overall_mean_node_coverage,
-        ) = build_and_correct_graph(
-            new_annotatedReads,
-            new_gene_position_dict,
-            node_min_coverage,
-            fastq_content,
-            args.output_dir,
-            args.debug,
-            overall_mean_node_coverages,
-            args.cores,
-            short_reads,
-            short_read_gene_positions,
-            sample_genesOfInterest,
-            min_path_coverage,
-            args.quiet,
-            vocab,
-            build_cache,
-        )
+    if args.reads is not None:
+        with phase("graph_cleaning", items=len(new_annotatedReads), unit="reads"):
+            (
+                new_annotatedReads,
+                new_gene_position_dict,
+                geneMer_size,
+                overall_mean_node_coverage,
+            ) = build_and_correct_graph(
+                new_annotatedReads,
+                new_gene_position_dict,
+                node_min_coverage,
+                fastq_content,
+                args.output_dir,
+                args.debug,
+                overall_mean_node_coverages,
+                args.cores,
+                short_reads,
+                short_read_gene_positions,
+                sample_genesOfInterest,
+                min_path_coverage,
+                args.quiet,
+                vocab,
+                build_cache,
+            )
+    else:
+        geneMer_size = 3
+        overall_mean_node_coverage = overall_mean_node_coverages[3]
 
     if not args.quiet:
         sys.stderr.write("\namira-tpu: building corrected gene-mer graph.\n")
@@ -294,7 +383,8 @@ def run_pipeline(args) -> None:
     )
     short_reads.update(graph.get_short_read_annotations())
     short_read_gene_positions.update(graph.get_short_read_gene_positions())
-    graph.remove_low_coverage_components(5)
+    if args.reads is not None:
+        graph.remove_low_coverage_components(5)
     if args.debug:
         for node in graph.all_nodes():
             graph.color_node(node, sample_genesOfInterest)
@@ -370,18 +460,30 @@ def run_pipeline(args) -> None:
     if len(result_df) == 0:
         write_empty_result(args.output_dir)
         sys.exit(0)
-    if not args.quiet:
-        sys.stderr.write("\namira-tpu: estimating cellular copy numbers.\n")
-    with phase("copy_number_estimation", items=len(path_reads), unit="paths"):
-        copy_numbers, mean_depth_per_reference = estimate_copy_numbers(
-            fastq_content,
-            path_reads,
-            set(result_df.column("Amira allele")),
-            args.output_dir,
-            15,
-            args.debug,
-            device=device,
-        )
+    if args.reads is not None and args.assembly is None and args.meta is False:
+        if not args.quiet:
+            sys.stderr.write("\namira-tpu: estimating cellular copy numbers.\n")
+        with phase("copy_number_estimation", items=len(path_reads), unit="paths"):
+            copy_numbers, mean_depth_per_reference = estimate_copy_numbers(
+                fastq_content,
+                path_reads,
+                set(result_df.column("Amira allele")),
+                args.output_dir,
+                15,
+                args.debug,
+                device=device,
+            )
+    else:
+        if not args.quiet:
+            sys.stderr.write(
+                "\namira-tpu: skipping cellular copy number estimation.\n"
+            )
+        copy_numbers = {a: "N/A" for a in result_df.column("Amira allele")}
+        mean_depth_per_reference = dict(copy_numbers)
+    if args.assemble_paths is True:
+        from .assembly import assemble_full_length_paths
+
+        assemble_full_length_paths(args.output_dir, args.cores, device=device)
     result_df = supplement_result_df(
         result_df, copy_numbers, mean_depth_per_reference, longest_read_lengths,
         args.debug,
@@ -403,6 +505,19 @@ def run_pipeline(args) -> None:
         plasmid_genes,
         args.meta,
     )
+    if args.promoters:
+        from .promoters import genotype_promoters
+
+        result_df = genotype_promoters(
+            result_df,
+            reference_alleles,
+            os.path.join(args.output_dir, "AMR_allele_fastqs"),
+            sequence_names,
+            fastq_content,
+            args.debug,
+            args.output_components,
+            device=device,
+        )
     if args.debug:
         write_reads_per_AMR_gene(args.output_dir, supplemented_clusters)
     result_df = result_df.sort_by("Determinant name")

@@ -838,6 +838,21 @@ def _column_kind(values) -> str:
     return "object"
 
 
+def _concat_kind(old, new) -> str:
+    """The dtype `pd.concat` gives a column of kind `old` in the first frame
+    and `new` in the second (None: the column is absent from that frame and
+    its rows get NaN): a missing value turns int into float and bool into
+    object; int with float is float; any other mix is object."""
+    if old is None or new is None:
+        kind = old or new
+        return {"int": "float", "bool": "object"}.get(kind, kind)
+    if old == new:
+        return old
+    if {old, new} == {"int", "float"}:
+        return "float"
+    return "object"
+
+
 def _is_missing(v) -> bool:
     return v is None or (isinstance(v, float) and math.isnan(v))
 
@@ -891,6 +906,21 @@ class ResultTable:
         out.columns = list(self.columns)
         out.kinds = dict(self.kinds)
         out.rows = rows
+        return out
+
+    def append_rows(self, rows) -> "ResultTable":
+        """This table with `rows` (dicts) after its own, as
+        `pd.concat([df, pd.DataFrame(rows)], ignore_index=True)` builds it:
+        the new rows' columns after this table's, and each column's dtype
+        from both frames' (`_concat_kind`)."""
+        new = ResultTable(rows)
+        out = self._with_rows(self.rows + new.rows)
+        for c in new.columns:
+            if c not in out.columns:
+                out.columns.append(c)
+        out.kinds = {
+            c: _concat_kind(self.kinds.get(c), new.kinds.get(c)) for c in out.columns
+        }
         return out
 
     def select(self, keep) -> "ResultTable":

@@ -31,12 +31,34 @@ Run from the root of a checkout. Phases, each printing its own lines:
    row matching allele NG001 at >= 99% identity, every kernel of the path
    must have launched, the large graph build must have hashed its windows
    on the card and the dense k-mer table must have lived there.
+5. The single-isolate features beyond the main path, with --device cuda:
+   a. the kernels' W = 512 instances (the path assembly's polishing band):
+      ptxas's registers and spills, both kernels exact against their plain
+      versions at an edge batch (512, 192, 37) and on random traceback
+      bytes (512, 192, 24), and, after 5c, exact and timed at the largest
+      (B, Lq) that 5c launched at W = 512;
+   b. the SAM route (--pandoraSam, --pandoraConsensus) on the first
+      SAM_READS reads of the phase-4 isolate, with a consensus of all its
+      4,002 gene sequences: its consensus QC aligns every read against
+      every gene on the card. Prints per-phase seconds, the wall, peak
+      device memory, the QC's jobs and the seconds of its seeding and its
+      alignment, the kernel wrappers' spans on the stream, sw_dp launches
+      by (B, Lq, W), and the seeding of the first read timed against a
+      per-gene loop; the rows must be phase 4's;
+   c. --assemble-paths' assembly (`assemble_full_length_paths`) of phase
+      4's path reads on the card: every path must give a contig;
+   d. --assembly, --meta and --promoter-mutations on their small isolates
+      must write the committed goldens (tests/goldens/, written by
+      amira_tpu) byte for byte, and --assemble-paths on the seed-7 isolate
+      the same path FASTAs as the assembly on the CPU.
 
 The next-to-last lines are the card line and one JSON object describing
 each kernel; the last line is {"ok": true, "device": {...}}. Any failed
 phase exits non-zero without that line, as does a machine without CUDA.
 The kernels JSON line reports each kernel at the main path's largest
-launch, (B, Lq, W) = (980, 1024, 256). Data, outputs and a JSON summary
+launch, (B, Lq, W) = (980, 1024, 256), with its launches on the main path
+(phase 4), on the SAM route (5b) and in the path assembly (5c), and its
+W = 512 checks and time (5a). Data, outputs and a JSON summary
 (chip_work/chip_smoke_summary.json) go under chip_work/, which .gitignore
 lists.
 """
@@ -69,6 +91,17 @@ SWEEP_B = (128, 512, 1024, 2048)  # sw_dp at Lq=2048, W=256
 # (W, Lq, B) of the random-byte traceback checks: the CPU test's and one near
 # the main path's largest launch
 RANDOM_SHAPES = [(64, 96, 40), (256, 192, 24), (256, 1024, 980)]
+# (W, Lq, B) of phase 5a's checks of the W = 512 instances (the assembly's
+# polishing band): the edge batch and random traceback bytes
+W512_EDGE_SHAPE = (512, 192, 37)
+W512_RANDOM_SHAPE = (512, 192, 24)
+# reads of the phase-4 isolate that phase 5b's SAM route takes, and those
+# it seeds both ways (the per-gene loop costs seconds per read). The route
+# costs about 6 ms of host time a read on the H100's host (PERF.md): all
+# 50,000 reads took this script to 917 s of its 1,200, so it takes the
+# first 20,000 and ends near 700 s, with room for the host's spread.
+SAM_READS = 20_000
+SEEDING_READS = 1
 
 # Bounds. H100 SXM: HBM3 at 3.35 TB/s (NVIDIA's data sheet); int32 issue of
 # 132 SMs x 64 int32 lanes x 1.98 GHz boost clock (Hopper white paper).
@@ -169,6 +202,19 @@ def max_abs_diff(pairs) -> int:
     )
 
 
+def timed_once(fn, *args):
+    """(*fn(*args), its milliseconds between CUDA events)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return (*out, start.elapsed_time(end))
+
+
 def cuda_ms(fn, reps, warm=1) -> float:
     """Mean milliseconds per call between CUDA events, after warm-up."""
     import torch
@@ -222,56 +268,73 @@ def dp_diff(got, ref, qlens) -> int:
     return max_abs_diff([(got[0][live], ref[0][live])] + list(zip(got[1:], ref[1:])))
 
 
+def check_shape(W, Lq, B, device, label, min_len=8, edges=False):
+    """Both kernels (apart, and fused with their CIGARs decoded) against
+    their plain versions on one sw_inputs batch, exactly; fails on any
+    difference. Returns (inputs, {kernel name: max_abs_err}, restages,
+    the plain walk's step counts, {kernel name: ms of its one plain call
+    here, between CUDA events})."""
+    from amira_tpu_torch.ops import sw_batch
+    from amira_tpu_torch.ops.align import _unpack_cigar
+
+    qs, rs, qlens, dlos = sw_inputs(
+        W, Lq, B, seed=Lq + B, device=device, min_len=min_len, edges=edges
+    )
+    plain_ms = {}
+    tb, best, bi, bw, bs = sw_batch.sw_dp(qs, rs, qlens, dlos, W)
+    r_tb, r_best, r_bi, r_bw, r_bs, plain_ms["sw_dp"] = timed_once(
+        sw_batch.sw_dp_reference, qs, rs, qlens, dlos, W
+    )
+    # traceback rows at or past a job's query length are unspecified
+    dp_err = dp_diff((tb, best, bi, bw, bs), (r_tb, r_best, r_bi, r_bw, r_bs), qlens)
+    del r_tb
+    sw_batch.traceback_restages(reset=True)
+    tb_out = sw_batch.sw_traceback(tb, best, bi, bw, bs, dlos, W)
+    restages = sw_batch.traceback_restages(reset=True)
+    *r_tb_out, plain_ms["sw_traceback"] = timed_once(
+        sw_batch.sw_traceback_reference, tb, best, bi, bw, bs, dlos, W
+    )
+    tb_err = max_abs_diff(list(zip(tb_out, r_tb_out)))
+    fused = sw_batch.sw_cigar(qs, rs, qlens, dlos, W)
+    r_fused = sw_batch.sw_cigar_reference(qs, rs, qlens, dlos, W)
+    fused_err = max_abs_diff(list(zip(fused, r_fused)))
+    packed, n_steps = fused[0].cpu().numpy(), fused[1].cpu().numpy()
+    r_packed, r_n = r_fused[0].cpu().numpy(), r_fused[1].cpu().numpy()
+    n_cigars = 0
+    for j in range(B):
+        a, b = _unpack_cigar(packed[j], int(n_steps[j])), _unpack_cigar(r_packed[j], int(r_n[j]))
+        if a != b:
+            fail(f"sw_cigar: decoded CIGAR of job {j} differs at {(W, Lq, B)}")
+        n_cigars += bool(a)
+    mapped = int((best > 0).sum())
+    print(
+        f"{label} kernels (W={W}, Lq={Lq}, B={B}): sw_dp max_abs_err {dp_err}, "
+        f"sw_traceback max_abs_err {tb_err}, fused max_abs_err {fused_err}, "
+        f"{mapped} jobs with a positive score, {n_cigars} CIGARs equal"
+    )
+    if dp_err or tb_err or fused_err:
+        fail(f"kernel output differs from its plain version at {(W, Lq, B)}")
+    if mapped < B // 2:
+        fail(f"too few aligned jobs ({mapped}) at {(W, Lq, B)}")
+    errs = {"sw_dp": max(dp_err, fused_err), "sw_traceback": max(tb_err, fused_err)}
+    return (qs, rs, qlens, dlos), errs, restages, r_n, plain_ms
+
+
 def check_kernels(device):
     """Phase 2: each kernel against its plain version on the same inputs at
     every shape, timed at PROD_SHAPES; then the sw_dp sweep. Returns
     ({(W, Lq, B): {kernel name: its JSON fields measured there}}, sweep
     rows)."""
-    from amira_tpu_torch.ops import sw_batch
-    from amira_tpu_torch.ops.align import _unpack_cigar
-
     errs = {"sw_dp": 0, "sw_traceback": 0}
     timed = {}
     for W, Lq, B in TEST_SHAPES + PROD_SHAPES:
         prod = (W, Lq, B) in PROD_SHAPES
-        qs, rs, qlens, dlos = sw_inputs(
-            W, Lq, B, seed=Lq + B, device=device, min_len=3 * Lq // 4 if prod else 8,
+        inputs, shape_errs, restages, r_n, _ = check_shape(
+            W, Lq, B, device, "phase 2", min_len=3 * Lq // 4 if prod else 8,
             edges=(W, Lq, B) == EDGE_SHAPE,
         )
-        tb, best, bi, bw, bs = sw_batch.sw_dp(qs, rs, qlens, dlos, W)
-        r_tb, r_best, r_bi, r_bw, r_bs = sw_batch.sw_dp_reference(qs, rs, qlens, dlos, W)
-        # traceback rows at or past a job's query length are unspecified
-        dp_err = dp_diff((tb, best, bi, bw, bs), (r_tb, r_best, r_bi, r_bw, r_bs), qlens)
-        del r_tb
-        sw_batch.traceback_restages(reset=True)
-        tb_out = sw_batch.sw_traceback(tb, best, bi, bw, bs, dlos, W)
-        restages = sw_batch.traceback_restages(reset=True)
-        r_tb_out = sw_batch.sw_traceback_reference(tb, best, bi, bw, bs, dlos, W)
-        tb_err = max_abs_diff(list(zip(tb_out, r_tb_out)))
-        fused = sw_batch.sw_cigar(qs, rs, qlens, dlos, W)
-        r_fused = sw_batch.sw_cigar_reference(qs, rs, qlens, dlos, W)
-        fused_err = max_abs_diff(list(zip(fused, r_fused)))
-        packed, n_steps = fused[0].cpu().numpy(), fused[1].cpu().numpy()
-        r_packed, r_n = r_fused[0].cpu().numpy(), r_fused[1].cpu().numpy()
-        n_cigars = 0
-        for j in range(B):
-            a, b = _unpack_cigar(packed[j], int(n_steps[j])), _unpack_cigar(r_packed[j], int(r_n[j]))
-            if a != b:
-                fail(f"sw_cigar: decoded CIGAR of job {j} differs at {(W, Lq, B)}")
-            n_cigars += bool(a)
-        mapped = int((best > 0).sum())
-        print(
-            f"phase 2 kernels (W={W}, Lq={Lq}, B={B}): sw_dp max_abs_err {dp_err}, "
-            f"sw_traceback max_abs_err {tb_err}, fused max_abs_err {fused_err}, "
-            f"{mapped} jobs with a positive score, {n_cigars} CIGARs equal"
-        )
-        if dp_err or tb_err or fused_err:
-            fail(f"kernel output differs from its plain version at {(W, Lq, B)}")
-        if mapped < B // 2:
-            fail(f"too few aligned jobs ({mapped}) at {(W, Lq, B)}")
-        errs["sw_dp"] = max(errs["sw_dp"], dp_err, fused_err)
-        errs["sw_traceback"] = max(errs["sw_traceback"], tb_err, fused_err)
-        del fused, r_fused, tb_out, r_tb_out, tb
+        for name, e in shape_errs.items():
+            errs[name] = max(errs[name], e)
         if prod:
             walked = int((r_n > 0).sum())
             print(
@@ -279,23 +342,23 @@ def check_kernels(device):
                 f"{int(r_n.max())} steps, {int(r_n.sum())} steps in all, "
                 f"{restages} re-stages ({restages / max(walked, 1):.4f} per walk)"
             )
-            timed[(W, Lq, B)] = time_kernels(qs, rs, qlens, dlos, W)
+            timed[(W, Lq, B)] = time_kernels(*inputs, W)
             timed[(W, Lq, B)]["sw_traceback"]["restages"] = restages
-    check_random_walks(device)
+    check_random_walks(device, RANDOM_SHAPES, "phase 2")
     for fields in timed.values():
         for name, f in fields.items():
             f["max_abs_err"] = errs[name]
     return timed, sweep_dp(device)
 
 
-def check_random_walks(device):
+def check_random_walks(device, shapes, label):
     """sw_traceback against its plain version, exactly, on random_band at
-    RANDOM_SHAPES."""
+    `shapes`; returns the largest difference (0, or it fails)."""
     import torch
 
     from amira_tpu_torch.ops import sw_batch
 
-    for W, Lq, B in RANDOM_SHAPES:
+    for W, Lq, B in shapes:
         args = [torch.from_numpy(a).to(device) for a in random_band(W, Lq, B, seed=W + Lq + B)]
         got = sw_batch.sw_traceback(*args, W)
         ref = sw_batch.sw_traceback_reference(*args, W)
@@ -303,11 +366,12 @@ def check_random_walks(device):
         n = ref[1]
         capped = int((n == sw_batch.tb_steps(Lq, W)).sum())
         print(
-            f"phase 2 random walks (W={W}, Lq={Lq}, B={B}): sw_traceback max_abs_err {err}, "
+            f"{label} random walks (W={W}, Lq={Lq}, B={B}): sw_traceback max_abs_err {err}, "
             f"{int((n > 0).sum())} walks, longest {int(n.max())} steps, {capped} at the step cap"
         )
         if err:
             fail(f"sw_traceback differs from its plain version on random bytes at {(W, Lq, B)}")
+    return 0
 
 
 def traceback_after_dp_ms(traceback, qs, rs, qlens, dlos, W, reps=20) -> float:
@@ -333,8 +397,9 @@ def traceback_after_dp_ms(traceback, qs, rs, qlens, dlos, W, reps=20) -> float:
     return sum(s.elapsed_time(e) for s, e in events[1:]) / reps
 
 
-def time_kernels(qs, rs, qlens, dlos, W):
-    """CUDA-event times of both kernels and their plain versions on one
+def time_kernels(qs, rs, qlens, dlos, W, label="phase 2", plain_ms=None):
+    """CUDA-event times of both kernels and their plain versions (two calls
+    each after a warm-up call, unless `plain_ms` gives their times) on one
     batch, with each kernel's bound and the longest walk; prints one line
     per kernel."""
     from amira_tpu_torch.ops import sw_batch
@@ -346,12 +411,14 @@ def time_kernels(qs, rs, qlens, dlos, W):
     times = {
         "sw_dp": (
             cuda_ms(lambda: sw_batch.sw_dp(qs, rs, qlens, dlos, W), reps=20),
-            cuda_ms(lambda: sw_batch.sw_dp_reference(qs, rs, qlens, dlos, W), reps=2),
+            plain_ms["sw_dp"] if plain_ms else cuda_ms(
+                lambda: sw_batch.sw_dp_reference(qs, rs, qlens, dlos, W), reps=2
+            ),
             dp_bound(qlens, W)[1],
         ),
         "sw_traceback": (
             traceback_after_dp_ms(sw_batch.sw_traceback, qs, rs, qlens, dlos, W),
-            cuda_ms(
+            plain_ms["sw_traceback"] if plain_ms else cuda_ms(
                 lambda: sw_batch.sw_traceback_reference(tb, best, bi, bw, bs, dlos, W),
                 reps=2,
             ),
@@ -363,7 +430,7 @@ def time_kernels(qs, rs, qlens, dlos, W):
     for name, (ms, plain_ms, (bound_ms, bound_by, kind)) in times.items():
         pct = 100.0 * bound_ms / ms
         print(
-            f"phase 2 time at (B={B}, Lq={Lq}, W={W}): {name} kernel {ms:.4f} ms, "
+            f"{label} time at (B={B}, Lq={Lq}, W={W}): {name} kernel {ms:.4f} ms, "
             f"plain PyTorch {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({kind}), "
             f"{pct:.1f} % of bound"
         )
@@ -374,7 +441,7 @@ def time_kernels(qs, rs, qlens, dlos, W):
         }
     ns = times["sw_traceback"][0] * 1e6 / max(longest, 1)
     print(
-        f"phase 2 walk at (B={B}, Lq={Lq}, W={W}): longest walk {longest} steps, "
+        f"{label} walk at (B={B}, Lq={Lq}, W={W}): longest walk {longest} steps, "
         f"sw_traceback {ns:.1f} ns per step of it"
     )
     out["sw_traceback"]["ns_per_step"] = ns
@@ -428,6 +495,85 @@ def cli_args(files, outdir, device):
     ]
 
 
+# the small isolates of the modes (tests/test_modes.py, test_promoters.py)
+# and the goldens amira_tpu writes for them
+MODE_GOLDENS = {
+    "assembly": "amira_results_assembly_seed31.tsv",
+    "meta": "amira_results_meta_seed32.tsv",
+    "promoters": "amira_results_promoters_seed21.tsv",
+}
+
+
+def mode_files(mode, d):
+    """Generates a mode's small isolate under `d` (see `mode_argv`) and
+    returns its input paths."""
+    import gzip
+
+    from synthetic import make_isolate
+
+    data = os.path.join(d, "data")
+    seed, n_reads, kwargs = {
+        "assembly": (31, 20, dict(sub=0.0, indel=0.0)),
+        "meta": (32, 40, {}),
+        "promoters": (21, 80, {}),
+        "debug": (33, 40, {}),
+    }[mode]
+    files = make_isolate(data, seed=seed, n_reads=n_reads, **kwargs)
+    if mode == "assembly":
+        files["assembly"] = os.path.join(data, "assembly.fa")
+        with gzip.open(files["fastq"], "rt") as fh, open(files["assembly"], "w") as out:
+            while True:
+                h = fh.readline()
+                if not h:
+                    break
+                seq = fh.readline().strip()
+                fh.readline()
+                fh.readline()
+                out.write(f">{h[1:].strip()}\n{seq}\n")
+    if mode == "promoters":
+        gene = files["gene_seqs"]["amrX"]
+        alt = next(c for c in "ACGT" if c != gene[50])
+        with open(files["amr_fasta"], "a") as fh:
+            fh.write(f"\n>amrX_promoter;amrX.NG003.1\n{gene[:50]}{alt}{gene[51:]}")
+    return {k: v for k, v in files.items() if isinstance(v, str)}
+
+
+def mode_argv(mode, d):
+    """CLI arguments, all but --output and --device, of a mode's small
+    isolate, generated under `d`: "assembly" (seed 31, the reads written as
+    an assembly FASTA), "meta" (seed 32), "promoters" (seed 21, with an amrX
+    promoter reference one SNP away from the reads) or "debug" (seed 33,
+    with --debug and --output-component-fastqs). The isolate is generated
+    in a child process with PYTHONHASHSEED=0: make_isolate draws the gene
+    sequences in the order of a set of names, which follows string hashing,
+    and the promoter row names the SNP's bases."""
+    env = dict(os.environ, PYTHONHASHSEED="0")
+    env["PYTHONPATH"] = os.pathsep.join([ROOT, os.path.join(ROOT, "tests")])
+    code = f"import chip_smoke, json; print(json.dumps(chip_smoke.mode_files({mode!r}, {d!r})))"
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+        text=True, check=True,
+    )
+    files = json.loads(out.stdout.splitlines()[-1])
+    reads = ["--assembly", files["assembly"]] if mode == "assembly" else ["--reads", files["fastq"]]
+    extra = {
+        "assembly": [], "meta": ["--meta"], "promoters": ["--promoter-mutations"],
+        "debug": ["--debug", "--output-component-fastqs"],
+    }[mode]
+    return [
+        "--pandoraJSON", files["calls"],
+        "--gene-positions", files["positions"],
+        *reads,
+        "--species", "Escherichia_coli",
+        "--amr-fasta", files["amr_fasta"],
+        "--amr-calls", files["amr_calls"],
+        "--core-genes", files["core_genes"],
+        "--plasmid-genes", files["plasmid_genes"],
+        "--quiet",
+        *extra,
+    ]
+
+
 def run_cli(argv):
     from amira_tpu_torch.__main__ import main
 
@@ -468,8 +614,32 @@ def scale_layout():
     return layout
 
 
+def check_scale_rows(out, label):
+    """The scale isolate's amira_results.tsv under `out`: two amrX rows and
+    one amrY row, each matching allele NG001 at >= 99 % identity. Prints
+    and returns the rows."""
+    with open(os.path.join(out, "amira_results.tsv")) as f:
+        rows = list(csv.DictReader(f, delimiter="\t"))
+    for r in rows:
+        print(
+            f"{label} result: {r['Determinant name']} {r['Amira allele']} "
+            f"{r['Closest reference']} identity {r['Identity (%)']} "
+            f"copy number {r['Approximate cellular copy number']}"
+        )
+    names = sorted(r["Determinant name"] for r in rows)
+    if names != ["amrX", "amrX", "amrY"]:
+        fail(f"{label}: expected amrX x2 + amrY, got {names}")
+    for r in rows:
+        if r["Closest reference"] != "NG001":
+            fail(f"{label}: {r['Amira allele']}: closest reference {r['Closest reference']}")
+        if float(r["Identity (%)"].split("/")[0]) < 99.0:
+            fail(f"{label}: {r['Amira allele']}: identity {r['Identity (%)']}")
+    return rows
+
+
 def run_main_path(n_reads, device):
-    """Phase 4: the main path at a real isolate size. Returns its summary."""
+    """Phase 4: the main path at a real isolate size. Returns its summary,
+    the isolate's files and the output directory."""
     import torch
 
     from amira_tpu_torch.ops import graph_tables, kmer, sw_batch
@@ -496,7 +666,7 @@ def run_main_path(n_reads, device):
     torch.cuda.synchronize()
     wall_s = time.time() - t0
     launches = dict(sw_batch.LAUNCHES)
-    dp_shapes = [[B, Lq, n] for (B, Lq), n in sw_batch.DP_SHAPES.items()]
+    dp_shapes = [[B, Lq, W, n] for (B, Lq, W), n in sw_batch.DP_SHAPES.items()]
     peak = torch.cuda.max_memory_allocated()
     with open(os.path.join(out, "phase_timings.json")) as f:
         phases = json.load(f)
@@ -507,23 +677,8 @@ def run_main_path(n_reads, device):
         f"{peak} bytes ({peak / 2**30:.2f} GiB), launches {launches}, "
         f"window-hash runs {graph_tables.DEVICE_RUNS}, dense tables {kmer.DENSE_TABLES}"
     )
-    print(f"phase 4 sw_dp launches by shape (B, Lq, launches): {dp_shapes}")
-    with open(os.path.join(out, "amira_results.tsv")) as f:
-        rows = list(csv.DictReader(f, delimiter="\t"))
-    for r in rows:
-        print(
-            f"phase 4 result: {r['Determinant name']} {r['Amira allele']} "
-            f"{r['Closest reference']} identity {r['Identity (%)']} "
-            f"copy number {r['Approximate cellular copy number']}"
-        )
-    names = sorted(r["Determinant name"] for r in rows)
-    if names != ["amrX", "amrX", "amrY"]:
-        fail(f"expected amrX x2 + amrY, got {names}")
-    for r in rows:
-        if r["Closest reference"] != "NG001":
-            fail(f"{r['Amira allele']}: closest reference {r['Closest reference']}")
-        if float(r["Identity (%)"].split("/")[0]) < 99.0:
-            fail(f"{r['Amira allele']}: identity {r['Identity (%)']}")
+    print(f"phase 4 sw_dp launches by shape (B, Lq, W, launches): {dp_shapes}")
+    rows = check_scale_rows(out, "phase 4")
     for name, n in launches.items():
         if n <= 0:
             fail(f"kernel {name} was not launched on the main path")
@@ -542,7 +697,455 @@ def run_main_path(n_reads, device):
         "dense_tables": dict(kmer.DENSE_TABLES),
         "phases": phases,
         "rows": rows,
+    }, files, out
+
+
+def ptxas_report(path):
+    """{kernel instance: (registers, spill store bytes, spill load bytes)}
+    from ptxas's -v report of the sw_batch build."""
+    import re
+
+    report, name = {}, None
+    with open(path) as f:
+        for line in f:
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", line)
+            if m:
+                name = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and name:
+                report.setdefault(name, [0, 0, 0])[1:] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                report.setdefault(name, [0, 0, 0])[0] = int(m.group(1))
+    return {k: tuple(v) for k, v in report.items()}
+
+
+def check_w512_edges(device, ptxas):
+    """Phase 5a, first part: the W = 512 instances' registers and spills,
+    and both kernels exact against their plain versions at W512_EDGE_SHAPE
+    (sw_inputs with its edge cases) and on random traceback bytes at
+    W512_RANDOM_SHAPE."""
+    instances = {
+        "sw_dp_kernel<16>": "sw_dp_kernelILi16E",
+        "sw_traceback_kernel<512>": "sw_traceback_kernelILi512E",
     }
+    regs = {}
+    for label, key in instances.items():
+        found = [v for k, v in ptxas.items() if key in k]
+        if not found:
+            fail(f"ptxas reported no {label}")
+        r, st, ld = found[0]
+        regs[label] = {"registers": r, "spill_stores": st, "spill_loads": ld}
+        print(f"phase 5a ptxas {label}: {r} registers, {st} bytes spill stores, {ld} bytes spill loads")
+    W, Lq, B = W512_EDGE_SHAPE
+    _, errs, _, _, _ = check_shape(W, Lq, B, device, "phase 5a", edges=True)
+    errs["sw_traceback_random"] = check_random_walks(device, [W512_RANDOM_SHAPE], "phase 5a")
+    return {"ptxas": regs, "edge_max_abs_err": errs}
+
+
+def check_w512_at(shape, device):
+    """Phase 5a, second part: both kernels exact against their plain
+    versions at (B, Lq, W) = `shape` (5c's largest W = 512 launch; query
+    lengths 3/4 Lq to Lq), and timed there beside their bounds."""
+    B, Lq, W = shape
+    inputs, errs, _, _, plain_ms = check_shape(W, Lq, B, device, "phase 5a", min_len=3 * Lq // 4)
+    # the plain versions' times are those of their one call in the check: a
+    # Python loop of Lq rows (or of the walk's steps), seconds each here
+    timed = time_kernels(*inputs, W, label="phase 5a", plain_ms=plain_ms)
+    for name, f in timed.items():
+        f["max_abs_err"] = errs[name]
+    return timed
+
+
+class KernelClock:
+    """CUDA events around every sw_dp and sw_traceback wrapper call while
+    active (the counts stay the wrappers' own): the summed milliseconds of
+    the wrappers' spans on the stream. A span holds the kernel and the
+    wrapper's own allocations and fills, and any time the card waited for
+    the host inside the call, so it bounds the kernels' device time from
+    above. Reading it synchronises the card."""
+
+    def __init__(self):
+        from amira_tpu_torch.ops import sw_batch
+
+        self.sw_batch = sw_batch
+        self.events = {"sw_dp": [], "sw_traceback": []}
+        self.saved = {}
+
+    def __enter__(self):
+        import torch
+
+        for name in self.events:
+            fn = getattr(self.sw_batch, name)
+            self.saved[name] = fn
+
+            def timed(*args, _fn=fn, _ev=self.events[name]):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = _fn(*args)
+                end.record()
+                _ev.append((start, end))
+                return out
+
+            setattr(self.sw_batch, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.sw_batch, name, fn)
+
+    def ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        return {n: sum(s.elapsed_time(e) for s, e in ev) for n, ev in self.events.items()}
+
+
+def write_sam_inputs(files, n, d):
+    """The phase-4 isolate's first n reads as pandora map would leave them:
+    their FASTQ, a pandora-style SAM of their gene calls (one record per
+    call, the region as leading hard clips, tests/test_sam_ingestion.py's
+    layout) and the consensus: every gene sequence of the isolate (4,000
+    genes plus the AMR genes, an E. coli pandora consensus's size).
+    Returns (sam, consensus, fastq)."""
+    import gzip
+    import itertools
+
+    os.makedirs(d, exist_ok=True)
+    with open(files["calls"]) as f:
+        calls = json.load(f)
+    with open(files["positions"]) as f:
+        positions = json.load(f)
+    fastq = os.path.join(d, "reads.fastq.gz")
+    with gzip.open(files["fastq"], "rt") as src, gzip.open(fastq, "wt", 1) as dst:
+        lines = list(itertools.islice(src, 4 * n))
+        dst.writelines(lines)
+    read_ids = [lines[4 * i][1:].strip() for i in range(len(lines) // 4)]
+    gene_seqs = files["gene_seqs"]
+    sam = os.path.join(d, "pandora.filtered.sam")
+    with open(sam, "w") as o:
+        o.write("@HD\tVN:1.6\n")
+        for g in sorted(gene_seqs):
+            o.write(f"@SQ\tSN:{g}\tLN:{len(gene_seqs[g])}\n")
+        for r in read_ids:
+            for g, (start, end) in zip(calls[r], positions[r]):
+                flag = 0 if g[0] == "+" else 16
+                clip = f"{start + 1}H" if start > 0 else ""
+                o.write(f"{r}\t{flag}\t{g[1:]}\t1\t60\t{clip}{end - start + 1}M\t*\t0\t0\t*\t*\n")
+    consensus = os.path.join(d, "pandora.consensus.fq.gz")
+    with gzip.open(consensus, "wt", 1) as o:
+        for g, seq in gene_seqs.items():
+            o.write(f"@{g}\n{seq}\n+\n{'I' * len(seq)}\n")
+    return sam, consensus, fastq, len(read_ids)
+
+
+def seed_chains_per_gene(qkmers, ref_index, band_width, max_occ=8, max_chains=4):
+    """The seeding before the one-index `_SeedIndex`: one query strand's
+    seed chains against ONE gene's own seed index, as the JAX package's
+    `_seed_chains` (amira_tpu/ops/align.py) computes them. Query k-mers
+    seen more than max_occ times in the gene are dropped; the sorted
+    diagonals split into chains where they jump by more than half the
+    band. Returns up to max_chains (median diagonal, seeds), most seeds
+    first."""
+    import numpy as np
+
+    qk, qpos = qkmers
+    rk_codes, rk_pos = ref_index
+    if len(qk) == 0 or len(rk_codes) == 0:
+        return []
+    lo = np.searchsorted(rk_codes, qk, side="left")
+    hi = np.searchsorted(rk_codes, qk, side="right")
+    counts = hi - lo
+    keep = (counts > 0) & (counts <= max_occ)
+    if not keep.any():
+        return []
+    reps = counts[keep]
+    total = int(reps.sum())
+    starts = np.repeat(lo[keep], reps)
+    offsets = np.concatenate([[0], np.cumsum(reps)[:-1]])
+    within = np.arange(total, dtype=np.int64) - np.repeat(offsets, reps)
+    d_sorted = np.sort(rk_pos[starts + within] - np.repeat(qpos[keep], reps), kind="stable")
+    breaks = np.nonzero(np.diff(d_sorted) > band_width // 2)[0] + 1
+    bounds = np.concatenate([[0], breaks, [total]])
+    chains = [(int(np.median(d_sorted[b0:b1])), int(b1 - b0)) for b0, b1 in zip(bounds[:-1], bounds[1:])]
+    chains.sort(key=lambda c: -c[1])
+    return chains[:max_chains]
+
+
+def time_seeding(consensus, fastq, n, device):
+    """The consensus QC's seeding on the first n reads, before and after
+    the one-index seeding: a loop over the consensus genes, each with its
+    own seed index (built first and not timed), as the JAX package seeds,
+    against `Aligner._jobs_for`; the job lists must be equal. Returns (ms
+    per read of the loop, ms per read of `_jobs_for`, jobs)."""
+    import gzip
+    import itertools
+
+    from amira_tpu_torch.io import parse_fastq
+    from amira_tpu_torch.ops.align import (
+        Aligner, build_ref_seed_index, query_seed_kmers, reverse_complement,
+    )
+    from amira_tpu_torch.sketch import encode_dna
+
+    refs = {g: v["sequence"] for g, v in parse_fastq(consensus).items()}
+    aligner = Aligner(refs, device=device)
+    indexes = {g: build_ref_seed_index(aligner.ref_codes[g], aligner.seed_k) for g in refs}
+    with gzip.open(fastq, "rt") as f:
+        lines = list(itertools.islice(f, 4 * n))
+    reads = {lines[i][1:].strip(): lines[i + 1].strip() for i in range(0, len(lines), 4)}
+    aligner._jobs_for("warm-up", next(iter(reads.values())), 2)  # builds the index
+    loop_s = index_s = 0.0
+    n_jobs = 0
+    for rid, seq in reads.items():
+        t = time.time()
+        jobs = []
+        for strand, qseq in (("+", seq), ("-", reverse_complement(seq))):
+            qkmers = query_seed_kmers(encode_dna(qseq), aligner.seed_k)
+            for name in aligner.ref_names:
+                chains = seed_chains_per_gene(qkmers, indexes[name], aligner.band_width)
+                top = chains[0][1] if chains else 0
+                jobs.extend(
+                    ((rid, name), strand, qseq, diag) for diag, cnt in chains
+                    if not (cnt < 2 or cnt * 20 < top)
+                )
+        loop_s += time.time() - t
+        t = time.time()
+        got = aligner._jobs_for(rid, seq, 2)
+        index_s += time.time() - t
+        if got != jobs:
+            fail(f"phase 5b: the one-index seeding's jobs differ from the per-gene loop's for {rid}")
+        n_jobs += len(jobs)
+    return 1e3 * loop_s / len(reads), 1e3 * index_s / len(reads), n_jobs
+
+
+def run_sam_route(files, n_reads, device):
+    """Phase 5b: the SAM route (pandora SAM + consensus) on the first
+    n_reads reads of the phase-4 isolate with --device cuda. Its consensus
+    QC aligns every read against every consensus gene: this phase times the
+    QC's seeding (`Aligner._jobs_for`) and alignment (`Aligner._run_jobs`)
+    apart, counts its jobs and kernel launches, and sums the kernel
+    wrappers' spans on the stream over the run (`KernelClock`). The result must hold phase 4's rows and the QC must
+    have launched both kernels."""
+    import torch
+
+    from amira_tpu_torch import preprocess
+    from amira_tpu_torch.ops import sw_batch
+    from amira_tpu_torch.ops.align import Aligner
+
+    d = os.path.join(WORK, "sam")
+    t0 = time.time()
+    sam, consensus, fastq, n = write_sam_inputs(files, n_reads, os.path.join(d, "data"))
+    print(f"phase 5b inputs: {n} reads, SAM and a consensus of {len(files['gene_seqs'])} genes written in {time.time() - t0:.1f} s (host, not timed below)")
+    qc = {"jobs": 0, "seeding_s": 0.0, "alignment_s": 0.0}
+    real_qc = preprocess.remove_poorly_mapped_genes
+    real_jobs_for, real_run_jobs = Aligner._jobs_for, Aligner._run_jobs
+
+    def jobs_for(self, *args, **kwargs):
+        t = time.time()
+        jobs = real_jobs_for(self, *args, **kwargs)
+        qc["seeding_s"] += time.time() - t
+        qc["jobs"] += len(jobs)
+        return jobs
+
+    def run_jobs(self, jobs):
+        t = time.time()
+        out = real_run_jobs(self, jobs)
+        torch.cuda.synchronize()
+        qc["alignment_s"] += time.time() - t
+        return out
+
+    def timed_qc(*args, **kwargs):
+        before = dict(sw_batch.LAUNCHES)
+        Aligner._jobs_for, Aligner._run_jobs = jobs_for, run_jobs
+        t = time.time()
+        try:
+            return real_qc(*args, **kwargs)
+        finally:
+            Aligner._jobs_for, Aligner._run_jobs = real_jobs_for, real_run_jobs
+            qc["seconds"] = time.time() - t
+            qc["launches"] = {k: sw_batch.LAUNCHES[k] - before[k] for k in before}
+
+    argv = [
+        "--pandoraSam", sam, "--pandoraConsensus", consensus, "--reads", fastq,
+        "--species", "Escherichia_coli", "--amr-fasta", files["amr_fasta"],
+        "--amr-calls", files["amr_calls"], "--core-genes", files["core_genes"],
+        "--plasmid-genes", files["plasmid_genes"], "--output", os.path.join(d, "out"),
+        "--quiet", "--device", device,
+    ]
+    for key in sw_batch.LAUNCHES:
+        sw_batch.LAUNCHES[key] = 0
+    sw_batch.DP_SHAPES.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    preprocess.remove_poorly_mapped_genes = timed_qc
+    t0 = time.time()
+    try:
+        with KernelClock() as clock:
+            run_cli(argv)
+            torch.cuda.synchronize()
+            wall_s = time.time() - t0
+    finally:
+        preprocess.remove_poorly_mapped_genes = real_qc
+    span_ms = clock.ms()
+    launches = dict(sw_batch.LAUNCHES)
+    dp_shapes = sorted(
+        ([B, Lq, W, k] for (B, Lq, W), k in sw_batch.DP_SHAPES.items()),
+        key=lambda x: (x[2], x[1], x[0]),
+    )
+    peak = torch.cuda.max_memory_allocated()
+    out = os.path.join(d, "out")
+    with open(os.path.join(out, "phase_timings.json")) as f:
+        phases = json.load(f)
+    for p in phases:
+        print(f"phase 5b timing: {p['phase']:<24s} {p['seconds']:9.3f} s")
+    print(
+        f"phase 5b SAM route: {n} reads, {wall_s:.1f} s wall ({1e3 * wall_s / n:.2f} ms per read), "
+        f"peak device memory {peak} bytes ({peak / 2**30:.2f} GiB), launches {launches}"
+    )
+    print(
+        f"phase 5b consensus QC: {qc['seconds']:.1f} s, {qc['jobs']} jobs, seeding "
+        f"{qc['seeding_s']:.1f} s ({1e3 * qc['seeding_s'] / n:.2f} ms per read), alignment "
+        f"{qc['alignment_s']:.1f} s, kernel launches {qc['launches']}"
+    )
+    print(
+        f"phase 5b kernel wrappers' spans on the stream over the run: sw_dp {span_ms['sw_dp']:.1f} ms, sw_traceback "
+        f"{span_ms['sw_traceback']:.1f} ms, {100 * sum(span_ms.values()) / (1e3 * wall_s):.2f} % of the wall"
+    )
+    print(f"phase 5b sw_dp launches by shape (B, Lq, W, launches): {dp_shapes}")
+    rows = check_scale_rows(out, "phase 5b")
+    loop_ms, index_ms, seed_jobs = time_seeding(consensus, fastq, SEEDING_READS, device)
+    print(
+        f"phase 5b seeding of the first {SEEDING_READS} read(s) ({seed_jobs} jobs, equal): "
+        f"a seed index per gene, looped {loop_ms:.2f} ms per read; one index over all "
+        f"genes {index_ms:.2f} ms per read"
+    )
+    qc["seeding_loop_ms_per_read"], qc["seeding_index_ms_per_read"] = loop_ms, index_ms
+    if not all(qc["launches"][k] > 0 for k in ("sw_dp", "sw_traceback")) or qc["jobs"] <= 0:
+        fail(f"phase 5b: the consensus QC did not align on the card ({qc})")
+    for name in ("gene_calls_with_gene_filtering.json", "gene_positions_with_gene_filtering.json"):
+        if not os.path.exists(os.path.join(out, name)):
+            fail(f"phase 5b: {name} was not written")
+    return {
+        "reads": n, "wall_seconds": wall_s, "ms_per_read": 1e3 * wall_s / n,
+        "peak_device_memory_bytes": peak, "launches": launches, "dp_shapes": dp_shapes,
+        "span_ms": span_ms, "qc": qc, "phases": phases, "rows": rows,
+    }
+
+
+def run_assemble_paths(out, device):
+    """Phase 5c: `assemble_full_length_paths` (--assemble-paths) on phase
+    4's AMR_allele_fastqs/path_reads/ with device="cuda", timed. Every path
+    must give at least one contig; the polish runs at W = 512. Returns its
+    summary, with the largest W = 512 sw_dp launch (B, Lq, W)."""
+    import glob
+
+    import torch
+
+    from amira_tpu_torch.assembly import assemble_full_length_paths
+    from amira_tpu_torch.ops import sw_batch
+
+    paths = sorted(glob.glob(os.path.join(out, "AMR_allele_fastqs", "path_reads", "*.fastq.gz")))
+    shutil.rmtree(os.path.join(out, "path_assemblies"), ignore_errors=True)
+    for key in sw_batch.LAUNCHES:
+        sw_batch.LAUNCHES[key] = 0
+    sw_batch.DP_SHAPES.clear()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    assemble_full_length_paths(out, device=device)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = dict(sw_batch.LAUNCHES)
+    w512 = {k: n for k, n in sw_batch.DP_SHAPES.items() if k[2] == 512}
+    contigs = {}
+    for p in paths:
+        path_id = os.path.basename(p).replace(".fastq.gz", "")
+        fasta = os.path.join(out, "path_assemblies", f"path_{path_id}", "assembly.fasta")
+        heads = []
+        if os.path.exists(fasta):
+            with open(fasta) as f:
+                heads = [line[1:].strip() for line in f if line.startswith(">")]
+        contigs[path_id] = heads
+        print(f"phase 5c path {path_id}: {len(heads)} contigs: {'; '.join(heads)}")
+    print(
+        f"phase 5c assemble_full_length_paths: {len(paths)} paths in {seconds:.1f} s, "
+        f"launches {launches}, W=512 sw_dp launches by (B, Lq): "
+        f"{sorted([B, Lq, n] for (B, Lq, _), n in w512.items())}"
+    )
+    if not paths:
+        fail("phase 5c: phase 4 wrote no path reads")
+    missing = [p for p, heads in contigs.items() if not heads]
+    if missing:
+        fail(f"phase 5c: no contig for paths {missing}")
+    if not w512:
+        fail("phase 5c: no W = 512 sw_dp launch")
+    largest = max(w512, key=lambda k: (k[0] * k[1], k[1]))
+    return {
+        "paths": len(paths), "seconds": seconds, "launches": launches,
+        "w512_dp_shapes": [[B, Lq, n] for (B, Lq, _), n in w512.items()],
+        "largest_w512": list(largest), "contigs": contigs,
+    }
+
+
+def check_modes(device):
+    """Phase 5d: --assembly, --meta and --promoter-mutations with --device
+    cuda on their small isolates write the committed goldens byte for
+    byte; on the seed-7 isolate, --assemble-paths on the card writes the
+    golden TSV and the same path_assemblies FASTAs as
+    `assemble_full_length_paths` on the CPU from the same path reads."""
+    import glob
+
+    from amira_tpu_torch.assembly import assemble_full_length_paths
+    from synthetic import make_isolate
+
+    out = {}
+    for mode, golden in MODE_GOLDENS.items():
+        d = os.path.join(WORK, "modes", mode)
+        t0 = time.time()
+        run_cli(mode_argv(mode, d) + ["--output", os.path.join(d, "out"), "--device", device])
+        with open(os.path.join(d, "out", "amira_results.tsv")) as f, open(
+            os.path.join(ROOT, "tests", "goldens", golden)
+        ) as g:
+            if f.read() != g.read():
+                fail(f"phase 5d: --{mode} amira_results.tsv differs from tests/goldens/{golden}")
+        out[mode] = time.time() - t0
+        print(f"phase 5d {mode}: amira_results.tsv equals tests/goldens/{golden} ({out[mode]:.1f} s)")
+    d = os.path.join(WORK, "modes", "assemble_paths")
+    files = make_isolate(
+        os.path.join(d, "data"), seed=7, n_reads=90, amr_genes=("amrX", "amrY"),
+        layout=["geneA", "geneB", "amrX", "geneC", "geneD", "amrY", "geneE", "geneF"],
+    )
+    card = os.path.join(d, "out")
+    t0 = time.time()
+    run_cli(cli_args(files, card, device) + ["--assemble-paths"])
+    with open(os.path.join(card, "amira_results.tsv")) as f, open(GOLDEN) as g:
+        if f.read() != g.read():
+            fail("phase 5d: --assemble-paths changed the seed-7 amira_results.tsv")
+    card_s = time.time() - t0
+    cpu = os.path.join(d, "cpu")
+    shutil.copytree(
+        os.path.join(card, "AMR_allele_fastqs", "path_reads"),
+        os.path.join(cpu, "AMR_allele_fastqs", "path_reads"),
+    )
+    t0 = time.time()
+    assemble_full_length_paths(cpu, device="cpu")
+    cpu_s = time.time() - t0
+    fastas = sorted(
+        os.path.relpath(p, card)
+        for p in glob.glob(os.path.join(card, "path_assemblies", "*", "assembly.fasta"))
+    )
+    if not fastas:
+        fail("phase 5d: --assemble-paths wrote no path assembly")
+    for rel in fastas:
+        with open(os.path.join(card, rel)) as f, open(os.path.join(cpu, rel)) as g:
+            if f.read() != g.read():
+                fail(f"phase 5d: {rel} differs between the card and the CPU")
+    print(
+        f"phase 5d --assemble-paths: {len(fastas)} path FASTAs equal on the card "
+        f"({card_s:.1f} s, the whole CLI) and the CPU ({cpu_s:.1f} s, the assembly alone)"
+    )
+    out["assemble_paths"] = {"fastas": fastas, "card_seconds": card_s, "cpu_seconds": cpu_s}
+    return out
 
 
 def main():
@@ -558,6 +1161,7 @@ def main():
     from amira_tpu_torch.ops import sw_batch
 
     device = "cuda"
+    t_start = time.time()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -567,37 +1171,65 @@ def main():
     t0 = time.time()
     lib = sw_batch.build()
     print(f"phase 1 build: {os.path.relpath(lib, ROOT)} in {time.time() - t0:.2f} s")
-    with open(os.path.join(os.path.dirname(lib), "sw_batch_ptxas.txt")) as f:
+    ptxas_path = os.path.join(os.path.dirname(lib), "sw_batch_ptxas.txt")
+    with open(ptxas_path) as f:
         for line in f:
             if "Used" in line or "spill" in line:
                 print(f"phase 1 ptxas: {line.strip()}")
-    timed, sweep = check_kernels(device)
-    check_golden(device)
-    summary = run_main_path(args.reads, device)
+    clock = []
 
-    kernels = [
-        {
-            "name": "sw_dp",
+    def lap(label):
+        clock.append([label, time.time() - t_start])
+        print(f"clock: {label} done at {clock[-1][1]:.1f} s")
+
+    lap("phase 1")
+    timed, sweep = check_kernels(device)
+    lap("phase 2")
+    check_golden(device)
+    lap("phase 3")
+    summary, files, scale_out = run_main_path(args.reads, device)
+    lap("phase 4")
+    w512_edges = check_w512_edges(device, ptxas_report(ptxas_path))
+    lap("phase 5a edges")
+    sam = run_sam_route(files, SAM_READS, device)
+    lap("phase 5b")
+    asm = run_assemble_paths(scale_out, device)
+    lap("phase 5c")
+    w512_timed = check_w512_at(tuple(asm["largest_w512"]), device)
+    lap("phase 5a at 5c's shape")
+    modes = check_modes(device)
+    lap("phase 5d")
+
+    kernels = []
+    for name, replaces in (
+        ("sw_dp", "amira_tpu/ops/pallas_sw_batch.py:51"),
+        ("sw_traceback", "amira_tpu/ops/align.py:390"),
+    ):
+        kernels.append({
+            "name": name,
             "route": "cuda",
             "source": "amira_tpu_torch/csrc/sw_batch.cu",
-            "replaces": "amira_tpu/ops/pallas_sw_batch.py:51",
-            "launches": summary["launches"]["sw_dp"],
-            **timed[MAIN_SHAPE]["sw_dp"],
-        },
-        {
-            "name": "sw_traceback",
-            "route": "cuda",
-            "source": "amira_tpu_torch/csrc/sw_batch.cu",
-            "replaces": "amira_tpu/ops/align.py:390",
-            "launches": summary["launches"]["sw_traceback"],
-            **timed[MAIN_SHAPE]["sw_traceback"],
-        },
-    ]
+            "replaces": replaces,
+            "launches": summary["launches"][name],
+            **timed[MAIN_SHAPE][name],
+            "launches_sam_route": sam["launches"][name],
+            "launches_assemble_paths": asm["launches"][name],
+            "w512": {
+                **w512_timed[name],
+                "edge_max_abs_err": w512_edges["edge_max_abs_err"][name],
+                "ptxas": w512_edges["ptxas"][
+                    "sw_dp_kernel<16>" if name == "sw_dp" else "sw_traceback_kernel<512>"
+                ],
+            },
+        })
+    kernels[1]["w512"]["random_max_abs_err"] = w512_edges["edge_max_abs_err"]["sw_traceback_random"]
     os.makedirs(os.path.dirname(SUMMARY), exist_ok=True)
     with open(SUMMARY, "w") as f:
         json.dump(
             {"card": card, "kernels": kernels, "timed": list(timed.values()), "sweep": sweep,
-             "main_path": summary}, f, indent=1,
+             "main_path": summary, "sam_route": sam, "assemble_paths": asm, "modes": modes,
+             "clock": clock},
+            f, indent=1,
         )
     print(card)
     print(json.dumps({"kernels": kernels}))

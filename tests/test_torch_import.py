@@ -48,7 +48,7 @@ def test_every_module_imports_without_jax_or_reference_package():
         "    importlib.import_module(n)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'amira_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
-        "print(len(names))\n"
+        "print(' '.join(names))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run(
@@ -56,7 +56,9 @@ def test_every_module_imports_without_jax_or_reference_package():
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 25
+    names = out.stdout.split()
+    assert len(names) >= 29
+    assert {"amira_tpu_torch.promoters", "amira_tpu_torch.assembly"} <= set(names)
 
 
 def test_no_source_file_imports_jax_or_reference_package():
@@ -113,15 +115,7 @@ def test_cuda_request_without_gpu_raises(monkeypatch, tmp_path):
     assert amira_tpu_torch.resolve_device("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize(
-    "extra",
-    [
-        ["--promoter-mutations"],
-        ["--assemble-paths"],
-        ["--meta"],
-        ["--dist-build"],
-    ],
-)
+@pytest.mark.parametrize("extra", [pytest.param(["--dist-build"], id="extra3")])
 def test_unported_features_raise(extra, tmp_path):
     from amira_tpu_torch.__main__ import main
 
@@ -135,16 +129,33 @@ def test_unported_features_raise(extra, tmp_path):
         main(argv)
 
 
-def test_sam_route_raises(tmp_path):
-    from amira_tpu_torch.__main__ import main
+@pytest.mark.parametrize(
+    "extra",
+    [
+        ["--pandoraSam", "calls.sam", "--pandoraConsensus", "cons.fq", "--reads", "r.fq"],
+        ["--panRG-path", "pan.panidx.zip", "--reads", "r.fq"],
+        ["--pandoraJSON", "c.json", "--gene-positions", "p.json", "--assembly", "a.fa"],
+        ["--pandoraJSON", "c.json", "--gene-positions", "p.json", "--reads", "r.fq",
+         "--meta", "--promoter-mutations", "--assemble-paths", "--debug",
+         "--no-dist-build"],
+    ],
+)
+def test_single_isolate_features_are_ported(extra):
+    from amira_tpu_torch.__main__ import get_options
+    from amira_tpu_torch.pipeline import check_ported
 
-    argv = [
-        "--pandoraSam", "calls.sam", "--pandoraConsensus", "cons.fq",
-        "--reads", "reads.fastq", "--species", "Escherichia_coli",
-        "--output", str(tmp_path / "out"), "--quiet", "--device", "cpu",
-    ]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        main(argv)
+    check_ported(get_options(["--species", "Escherichia_coli", *extra]))
+
+
+def test_native_helper_is_built_from_the_ports_own_copy():
+    import importlib
+
+    build = importlib.import_module("amira_tpu_torch.native.build")
+    assert os.path.dirname(build._SRC) == os.path.join(PORT_DIR, "native")
+    with open(build._SRC, "rb") as f, open(
+        os.path.join(REPO, "amira_tpu", "native", "_fastio.c"), "rb"
+    ) as g:
+        assert f.read() == g.read()
 
 
 def _small_batch(device, W=64, lq=96, B=6, seed=5):
@@ -164,7 +175,7 @@ def _small_batch(device, W=64, lq=96, B=6, seed=5):
 
 
 def _device_taking_entry_points():
-    from amira_tpu_torch import graph_cache, preprocess, results
+    from amira_tpu_torch import assembly, graph_cache, preprocess, promoters, results
     from amira_tpu_torch.ops import consensus, kmer
 
     return [
@@ -173,11 +184,13 @@ def _device_taking_entry_points():
         results.get_closest_allele_from_polished, results.compare_reads_to_references,
         results.get_alleles, results.estimate_copy_numbers, consensus.polish_once,
         consensus.polish, preprocess.remove_poorly_mapped_genes,
-        preprocess.convert_pandora_output,
+        preprocess.convert_pandora_output, promoters.genotype_promoters,
+        assembly.assemble_reads, assembly.assemble_path,
+        assembly.assemble_full_length_paths,
     ]
 
 
-@pytest.mark.parametrize("index", range(12))
+@pytest.mark.parametrize("index", range(16))
 def test_device_is_a_required_argument(index):
     fn = _device_taking_entry_points()[index]
     param = inspect.signature(fn).parameters["device"]

@@ -13,6 +13,7 @@ import os
 import numpy as np
 import pandas as pd
 import pytest
+import torch
 
 from amira_tpu_torch.results import ResultTable
 from synthetic import make_isolate
@@ -33,6 +34,17 @@ ISOLATES = {
         ],
     ),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain SW versions run many small torch ops: one intra-op thread
+    is as fast here, and keeps parallel test workers off each other's
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _argv(files, outdir):

@@ -55,6 +55,17 @@ from chip_smoke import random_band
 NAMES = ("packed", "n_steps", "q0", "r0", "best", "bi", "bw")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain SW versions run many small torch ops: one intra-op thread
+    is as fast here, and keeps parallel test workers off each other's
+    cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -265,7 +276,7 @@ def _cummax_deletions(M_cur, gap_open, gap_ext):
     return D_un, ext
 
 
-@pytest.mark.parametrize("W", [64, 128, 256])
+@pytest.mark.parametrize("W", [64, 128, 256, 512])
 def test_strip_scan_deletions_match_cummax(W):
     M = _masked_m_rows(np.random.RandomState(W), 300, W)
     for gap_open, gap_ext in ((GAP_OPEN, GAP_EXT), (GAP_OPEN2, GAP_EXT2)):
@@ -279,7 +290,7 @@ def test_strip_scan_deletions_match_cummax(W):
         assert (ref_d.numpy() == NEG).any() and (ref_d.numpy() > NEG).any()
 
 
-@pytest.mark.parametrize("W", [64, 128, 256])
+@pytest.mark.parametrize("W", [64, 128, 256, 512])
 def test_packed_key_row_max_matches_first_lane(W):
     rng = np.random.RandomState(W + 1)
     R = 400
@@ -303,7 +314,9 @@ def test_packed_key_row_max_matches_first_lane(W):
     assert (rv[~pos] <= 0).all()
 
 
-@pytest.mark.parametrize("W,lq,B", [(64, 128, 24), (128, 256, 9), (256, 192, 37)])
+@pytest.mark.parametrize(
+    "W,lq,B", [(64, 128, 24), (128, 256, 9), (256, 192, 37), (512, 192, 9)]
+)
 def test_kernel_model_matches_plain_version(W, lq, B):
     arrays = _edge_batch(W, lq, B)
     tb, out = _kernel_model(*arrays, W)
@@ -321,6 +334,8 @@ def test_kernel_model_matches_plain_version(W, lq, B):
         pytest.param(128, 256, 9, False, id="128-256-9"),
         # the main path's band width, with the DP's edge cases planted
         pytest.param(256, 192, 16, True, id="256-192-16-edges"),
+        # the assembly's polishing band (S = 16 lanes a thread in the kernel)
+        pytest.param(512, 192, 9, True, id="512-192-9-edges"),
     ],
 )
 def test_plain_version_matches_xla_and_pallas(W, lq, B, edges):
@@ -497,7 +512,7 @@ def _dp_band(W, lq, B):
     return tb, best, bi, bw, bs, arrays[3]
 
 
-@pytest.mark.parametrize("W,lq,B", [(64, 96, 40), (256, 192, 24)])
+@pytest.mark.parametrize("W,lq,B", [(64, 96, 40), (256, 192, 24), (512, 96, 16)])
 def test_plain_walk_matches_xla_on_random_bytes(W, lq, B):
     tb, best, bi, bw, bs, dlos = random_band(W, lq, B, seed=W + lq)
     # the JAX walk reads the scan-major (Lq, B, W) band
@@ -512,7 +527,7 @@ def test_plain_walk_matches_xla_on_random_bytes(W, lq, B):
 
 
 @pytest.mark.parametrize("tile", ["small", "kernel"])
-@pytest.mark.parametrize("W", [64, 128, 256])
+@pytest.mark.parametrize("W", [64, 128, 256, 512])
 def test_tiled_walk_model_matches_plain_version(W, tile):
     # the small tile (4 rows, one 16-byte chunk of lanes, one tile in flight,
     # runs of at most 8 steps) misses often: the walk leaves its window and
@@ -615,6 +630,8 @@ def test_aligner_map_reads_and_diagonals_match_jax(monkeypatch):
         (256, 192, 37, "dp"),
         (256, 1024, 96, "dp"),
         (256, 512, 300, "random"),
+        (512, 640, 37, "dp"),
+        (512, 256, 48, "random"),
     ],
 )
 def test_kernels_match_plain_version_on_gpu(W, lq, B, band, cuda_device):
