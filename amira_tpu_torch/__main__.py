@@ -1,14 +1,25 @@
 """CLI entry point: `python -m amira_tpu_torch` (the reference's console
 script, amira/__main__.py:53-289). Flags mirror `python -m amira_tpu`, plus
-`--device {cuda,cpu}` (default cuda; asking for cuda without a GPU raises).
-The flags of features not yet ported are accepted by the parser and raise
-NotImplementedError when the pipeline starts (pipeline.check_ported)."""
+`--device` (cuda, cuda:N or cpu; default cuda; asking for a CUDA device
+that is not visible raises). A batch of isolates runs through
+`python -m amira_tpu_torch.batch` (batch.py)."""
 
 from __future__ import annotations
 
 import argparse
+import re
 
 from . import __version__
+
+
+def device_name(value: str) -> str:
+    """A `--device` value: "cpu", "cuda" or "cuda:N" (whether that device
+    exists is checked when the pipeline starts, by resolve_device)."""
+    if not re.fullmatch(r"cpu|cuda(:\d+)?", value):
+        raise argparse.ArgumentTypeError(
+            f"invalid device {value!r} (expected cuda, cuda:N or cpu)"
+        )
+    return value
 
 
 def get_options(argv=None) -> argparse.Namespace:
@@ -18,9 +29,9 @@ def get_options(argv=None) -> argparse.Namespace:
         "sequences (PyTorch/CUDA engine).",
     )
     parser.add_argument(
-        "--device", dest="device", choices=["cuda", "cpu"], default="cuda",
-        help="torch device for the graph, alignment and k-mer work "
-        "(default=cuda; no silent fallback to the CPU).",
+        "--device", dest="device", type=device_name, default="cuda",
+        help="torch device for the graph, alignment and k-mer work: cuda, "
+        "cuda:N or cpu (default=cuda; no silent fallback to the CPU).",
     )
     parser.add_argument("--pandoraSam", dest="pandoraSam", help=argparse.SUPPRESS, default=None)
     parser.add_argument("--pandoraJSON", dest="pandoraJSON", help=argparse.SUPPRESS, default=None)
@@ -127,14 +138,15 @@ def get_options(argv=None) -> argparse.Namespace:
         dest="dist_build",
         action="store_true",
         default=None,
-        help="Shard the initial/final graph builds over all visible devices "
-        "(not yet ported).",
+        help="Shard the initial/final graph builds over every visible "
+        "device of --device's type (the default when two or more are "
+        "visible; one device builds alone).",
     )
     parser.add_argument(
         "--no-dist-build",
         dest="dist_build",
         action="store_false",
-        help="Single-device graph builds (the only kind ported).",
+        help="Single-device graph builds, however many devices are visible.",
     )
     parser.add_argument("--amr-calls", dest="amr_calls", help=argparse.SUPPRESS, default=None)
     parser.add_argument("--core-genes", dest="core_genes", help=argparse.SUPPRESS, default=None)

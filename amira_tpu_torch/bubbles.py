@@ -18,6 +18,7 @@ import numpy as np
 from .correct import needleman_wunsch, replace_invalid_gene_positions
 from .sketch import MinHash
 from .stree import SequenceIndex
+from .tracing import ThreadSeconds
 
 
 
@@ -1152,29 +1153,32 @@ def correct_bubble_paths(
 
 
 # cumulative wall-clock per sweep stage (reset/printed by the cleaning
-# loop's stage accounting; purely observational)
-SWEEP_STAGE_SECONDS = {
-    "path_search": 0.0,
-    "path_filter": 0.0,
-    "sketches": 0.0,
-    "corrections": 0.0,
-    # path_search internals
-    "ps.frontier": 0.0,
-    "ps.group": 0.0,
-    "ps.canon": 0.0,
-    "ps.tuples": 0.0,
-    # containment filter internals
-    "pf.build": 0.0,
-    "pf.loop": 0.0,
-    # sketch internals
-    "sk.spans": 0.0,
-    "sk.hash": 0.0,
-    "sk.assemble": 0.0,
-    # correction internals
-    "co.pairs": 0.0,
-    "co.align": 0.0,
-    "co.reads": 0.0,
-}
+# loop's stage accounting; purely observational). One set per thread: a
+# batch cleans several isolates at once, each in its own thread.
+SWEEP_STAGE_SECONDS = ThreadSeconds(
+    (
+        "path_search",
+        "path_filter",
+        "sketches",
+        "corrections",
+        # path_search internals
+        "ps.frontier",
+        "ps.group",
+        "ps.canon",
+        "ps.tuples",
+        # containment filter internals
+        "pf.build",
+        "pf.loop",
+        # sketch internals
+        "sk.spans",
+        "sk.hash",
+        "sk.assemble",
+        # correction internals
+        "co.pairs",
+        "co.align",
+        "co.reads",
+    )
+)
 
 
 def correct_low_coverage_paths(

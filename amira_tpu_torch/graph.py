@@ -599,6 +599,101 @@ class GeneMerGraph:
             store[rid] = e
             entries[kp] = e
 
+    def _finish_from_distributed_tables(
+        self, kept_ids, tok_list, lens, offs,
+        uh, counts, first_idx, uek, e_counts, e_first, wh_rows, wd_rows,
+    ):
+        """Assemble the lazy aggregation tables from a distributed build's
+        merged node/edge tables (parallel/distgraph.py:
+        distributed_graph_build) and its window streams. The graph is
+        identical to the JAX package's distributed build: coverages and
+        global first-occurrence order keys come from the merged tables;
+        incidence, canonical tokens and edge endpoints are rebuilt from the
+        streams.
+
+        uh / uek: unique node hashes / edge keys, uint64, ascending; counts,
+        e_counts: their coverages; first_idx: each node's first position in
+        the concatenated window stream; e_first: each edge's first record
+        (2 * window-pair position + 1 for the reverse-complement
+        companion). wh_rows / wd_rows: (R, W) window hashes (uint64) and
+        directions (int8) of the kept reads, valid for each read's first
+        lens - k + 1 windows."""
+        from .graph_cache import CacheEntry
+
+        k = self._kmerSize
+        entries = []
+        occ_parts, wd_parts = [], []
+        for i, rid in enumerate(kept_ids):
+            W = int(lens[i]) - (k - 1)
+            e = CacheEntry()
+            e.genes = self._reads[rid]
+            e.genes_src = self._reads[rid]
+            e.tok = tok_list[i]
+            e.wh = np.ascontiguousarray(wh_rows[i, :W])
+            e.wd = np.ascontiguousarray(wd_rows[i, :W])
+            e.nodes_tpl = None
+            e.dirs_tpl = None
+            e.pos_src = None
+            e.pos_tpl = None
+            entries.append(e)
+            occ_parts.append(e.wh)
+            wd_parts.append(e.wd)
+        occ = np.concatenate(occ_parts)
+        wd_cat = np.concatenate(wd_parts)
+        wlens = np.diff(offs)
+
+        uh = np.asarray(uh, dtype=np.uint64)
+        counts = np.asarray(counts, dtype=np.int64)
+        first_idx = np.asarray(first_idx, dtype=np.int64)
+        inv = np.searchsorted(uh, occ)
+        f_read = np.searchsorted(offs, first_idx, side="right") - 1
+        f_w = first_idx - offs[f_read]
+
+        uek = np.asarray(uek, dtype=np.uint64)
+        e_counts = np.asarray(e_counts, dtype=np.int64)
+        e_first = np.asarray(e_first, dtype=np.int64)
+        if uek.size:
+            valid = np.ones(len(occ), dtype=bool)
+            valid[offs[1:] - 1] = False
+            p0 = np.flatnonzero(valid)
+            pair_pos = e_first >> 1
+            rev = (e_first & 1).astype(bool)
+            base = p0[pair_pos]
+            w0_h, w1_h = occ[base], occ[base + 1]
+            w0_d = wd_cat[base].astype(np.int64)
+            w1_d = wd_cat[base + 1].astype(np.int64)
+            w0_i, w1_i = inv[base], inv[base + 1]
+            src_hs = np.where(rev, w1_h, w0_h)
+            tgt_hs = np.where(rev, w0_h, w1_h)
+            src_ds = np.where(rev, -w1_d, w0_d)
+            tgt_ds = np.where(rev, -w0_d, w1_d)
+            src_is = np.where(rev, w1_i, w0_i).astype(np.int64)
+            tgt_is = np.where(rev, w0_i, w1_i).astype(np.int64)
+        else:
+            z64 = np.zeros(0, np.int64)
+            e_counts = e_first = z64
+            src_hs = tgt_hs = uek
+            src_ds = tgt_ds = src_is = tgt_is = z64
+
+        self._lazy = {
+            "entries": entries,
+            "kept_ids": kept_ids,
+            "occ": occ,
+            "offs": offs,
+            "wlens": wlens,
+            "wd_cat": wd_cat,
+            "uh": uh,
+            "inv": inv,
+            "counts": counts,
+            "first_idx": first_idx,
+            "f_read": f_read,
+            "f_w": f_w,
+            "edges": (
+                uek, e_counts, e_first, src_hs, tgt_hs, src_ds, tgt_ds,
+                src_is, tgt_is,
+            ),
+        }
+
     # ------------------------------------------------------------- accessors
 
     def get_reads(self):

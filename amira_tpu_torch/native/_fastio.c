@@ -122,12 +122,22 @@ fail:
     return NULL;
 }
 
+/* The whole-file fast path holds the file and its decompressed text in
+ * memory at once. It runs only for files of at most this many bytes, and
+ * only while the decompressed text fits in FASTQ_TEXT_PER_FILE_BYTE times
+ * that: 256 MiB of file, 4 GiB of text. Larger inputs take the streaming
+ * path, which holds one line at a time (and the records). */
+#define FASTQ_WHOLE_FILE_MAX_BYTES ((Py_ssize_t)256 << 20)
+#define FASTQ_TEXT_PER_FILE_BYTE 16
+
 /* Whole-file fast path: read the file, libdeflate-decompress every gzip
  * member (or take plain text as-is), scan in memory. Returns the parsed
  * dict, or NULL with no exception set to request the streaming fallback
- * (NULL with an exception set on real Python-level errors). */
+ * (NULL with an exception set on real Python-level errors), which it also
+ * does for a file larger than max_bytes or text larger than
+ * FASTQ_TEXT_PER_FILE_BYTE * max_bytes. */
 static PyObject *
-parse_fastq_fast(const char *path)
+parse_fastq_fast(const char *path, Py_ssize_t max_bytes)
 {
     FILE *f = fopen(path, "rb");
     if (!f)
@@ -137,9 +147,9 @@ parse_fastq_fast(const char *path)
         return NULL;
     }
     long fsz = ftell(f);
-    if (fsz <= 0) {
+    if (fsz <= 0 || (Py_ssize_t)fsz > max_bytes) {
         fclose(f);
-        return NULL;
+        return NULL; /* empty, or above the memory ceiling: streaming */
     }
     rewind(f);
     char *inbuf = (char *)malloc((size_t)fsz);
@@ -172,7 +182,10 @@ parse_fastq_fast(const char *path)
         /* FASTQ compresses ~6-7x (half the bytes are ~incompressible
          * qualities is not true for synthetic data; real ONT runs land
          * 4-7x) — start at 8x so the common case needs no grow-retry */
+        const size_t maxcap = (size_t)max_bytes * FASTQ_TEXT_PER_FILE_BYTE;
         size_t outcap = (size_t)fsz * 8 + (16u << 20);
+        if (outcap > maxcap)
+            outcap = maxcap;
         char *outbuf = (char *)malloc(outcap);
         size_t inoff = 0, outoff = 0;
         int failed = outbuf == NULL;
@@ -186,7 +199,11 @@ parse_fastq_fast(const char *path)
                 inoff += ain;
                 outoff += aout;
             } else if (rc == 3 /* INSUFFICIENT_SPACE */) {
-                size_t ncap = outcap * 2;
+                if (outcap >= maxcap) {
+                    failed = 1; /* above the memory ceiling: streaming */
+                    break;
+                }
+                size_t ncap = outcap * 2 < maxcap ? outcap * 2 : maxcap;
                 char *nbuf = (char *)realloc(outbuf, ncap);
                 if (!nbuf) {
                     failed = 1;
@@ -218,10 +235,11 @@ static PyObject *
 parse_fastq(PyObject *self, PyObject *args)
 {
     const char *path;
-    if (!PyArg_ParseTuple(args, "s", &path))
+    Py_ssize_t max_bytes = FASTQ_WHOLE_FILE_MAX_BYTES;
+    if (!PyArg_ParseTuple(args, "s|n", &path, &max_bytes))
         return NULL;
 
-    PyObject *fast = parse_fastq_fast(path);
+    PyObject *fast = parse_fastq_fast(path, max_bytes);
     if (fast)
         return fast;
     if (PyErr_Occurred())
@@ -568,13 +586,15 @@ pack_dna_chunk(PyObject *self, PyObject *args)
 
 static PyMethodDef Methods[] = {
     {"parse_fastq", parse_fastq, METH_VARARGS,
-     "parse_fastq(path) -> {name: (seq, qual)}"},
+     "parse_fastq(path, max_bytes=256 MiB) -> {name: (seq, qual)}; files "
+     "larger than max_bytes are streamed, not read whole"},
     {"encode_reads", encode_reads, METH_VARARGS,
      "encode_reads(reads, vocab, next_id) -> (token bytes list, next_id, new_names)"},
     {"encode_dna", encode_dna_c, METH_VARARGS,
      "encode_dna(seq) -> bytes of 2-bit codes (255 invalid)"},
     {"pack_dna_chunk", pack_dna_chunk, METH_VARARGS,
-     "pack_dna_chunk(seqs, start, chunk_codes) -> (words, bad, next_start)"},
+     "pack_dna_chunk(seqs, start, offset, chunk_codes, k) -> "
+     "(words, bad, next_start, next_offset)"},
     {NULL, NULL, 0, NULL},
 };
 

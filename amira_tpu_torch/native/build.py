@@ -15,6 +15,7 @@ import os
 import subprocess
 import sys
 import sysconfig
+import threading
 
 from .. import BUILD_DIR
 
@@ -37,7 +38,7 @@ def build(force: bool = False) -> str | None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     include = sysconfig.get_paths()["include"]
     cc = os.environ.get("CC", "gcc")
-    tmp = f"{so}.{os.getpid()}.tmp"
+    tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = [cc, "-O2", "-fPIC", "-shared", "-o", tmp, _SRC, f"-I{include}", "-lz"]
     try:
         subprocess.run(cmd, check=True, capture_output=True, text=True, timeout=120)
@@ -54,13 +55,31 @@ def build(force: bool = False) -> str | None:
 
 _module = None
 _tried = False
+_load_lock = threading.Lock()
 
 
 def load():
-    global _module, _tried
+    """The built module, or None (built and loaded once per process; threads
+    that call it together wait for the first)."""
     if _tried:
         return _module
-    _tried = True
+    with _load_lock:
+        return _load_locked()
+
+
+def _load_locked():
+    global _module, _tried
+    if not _tried:
+        try:
+            _module = _build_and_import()
+        finally:
+            # set last: load() reads _module without the lock once _tried is
+            # set
+            _tried = True
+    return _module
+
+
+def _build_and_import():
     if os.environ.get("AMIRA_TPU_NO_NATIVE"):
         return None
     so = build()
@@ -77,5 +96,4 @@ def load():
         loader.exec_module(module)
     except ImportError:
         return None
-    _module = module
-    return _module
+    return module

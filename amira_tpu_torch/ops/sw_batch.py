@@ -20,8 +20,10 @@ Beside each kernel is its plain PyTorch version (`sw_dp_reference`,
 `sw_traceback_reference`): a Python loop over query rows on (B, W) tensors
 with `torch.cummax` for the deletion recurrences, and a vectorised walk. The
 wrappers use the plain versions only for tensors on the CPU; for CUDA
-tensors they launch the kernels or raise. `LAUNCHES` counts kernel launches
-and `DP_SHAPES` counts sw_dp launches by (B, Lq, W); `traceback_restages()`
+tensors they launch the kernels, with the tensors' device current and on
+its current stream (`_launch`), or raise. `LAUNCHES` counts kernel launches
+and `DP_SHAPES` counts sw_dp launches by (B, Lq, W), over the process;
+`thread_launches()` counts the calling thread's; `traceback_restages()`
 reads the traceback kernel's count of re-stages (tiles it had to stage and
 wait for because a walk left the window of lanes it was reading).
 """
@@ -34,6 +36,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 import torch
 
@@ -51,9 +54,35 @@ from .align import (
 _SRC = os.path.join(PACKAGE_DIR, "csrc", "sw_batch.cu")
 
 # kernel launches by the wrappers below (never by the plain versions), and
-# sw_dp launches by (B, Lq, W)
+# sw_dp launches by (B, Lq, W): over the process, so a batch's isolates sum
+# here; thread_launches() gives the calling thread's own
 LAUNCHES = {"sw_dp": 0, "sw_traceback": 0}
 DP_SHAPES: collections.Counter = collections.Counter()
+_count_lock = threading.Lock()
+_thread_counts = threading.local()
+
+
+def _own_launches() -> dict:
+    return _thread_counts.__dict__.setdefault("launches", {"sw_dp": 0, "sw_traceback": 0})
+
+
+def _count_launch(name: str, dp_shape=None):
+    with _count_lock:
+        LAUNCHES[name] += 1
+        if dp_shape is not None:
+            DP_SHAPES[dp_shape] += 1
+    _own_launches()[name] += 1
+
+
+def thread_launches(reset: bool = False) -> dict:
+    """The calling thread's kernel launches, by kernel, since its first
+    launch or its last reset (a batch runs each isolate in one thread)."""
+    own = _own_launches()
+    out = dict(own)
+    if reset:
+        own.update(sw_dp=0, sw_traceback=0)
+    return out
+
 
 # band widths both kernels are instantiated for (W = 32 * S band lanes, S per
 # thread of a warp): the aligner's 256, the assembly's polishing band 512
@@ -74,6 +103,7 @@ def tb_steps(Lq: int, W: int) -> int:
 # ------------------------------------------------------------------ build
 
 _lib = None
+_build_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -90,7 +120,16 @@ def build() -> str:
     """Compile csrc/sw_batch.cu (once per source content: the library is
     named by the source's digest) and load it, once per process; returns the
     library path. Raises with nvcc's output on failure. The wrappers call it
-    before every launch, so after the first call it touches no file."""
+    before every launch, so after the first call it touches no file. Threads
+    that call it together build once: the first holds `_build_lock`, and
+    nvcc writes to a file named by process and thread."""
+    if _lib is not None:
+        return _lib._name
+    with _build_lock:
+        return _build_locked()
+
+
+def _build_locked() -> str:
     global _lib
     if _lib is not None:
         return _lib._name
@@ -99,7 +138,7 @@ def build() -> str:
     so = os.path.join(BUILD_DIR, f"libsw_batch_{digest}.so")
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
+        tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
         cmd = [
             _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
             "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -134,6 +173,16 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device):
         raise ValueError(f"{name}: expected device {device}, got {t.device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def _launch(dev: torch.device, launcher, *args) -> int:
+    """Calls a ctypes launcher with `args` and `dev`'s current stream, with
+    `dev` as the calling thread's current CUDA device: the runtime launches
+    on the current device whatever stream it is given, so without the guard
+    a launch for cuda:1 from a thread whose current device is cuda:0 would
+    go to the wrong card. Returns the launcher's CUDA error code."""
+    with torch.cuda.device(dev):
+        return launcher(*args, torch.cuda.current_stream(dev).cuda_stream)
 
 
 def _raise_on(err: int, what: str):
@@ -176,15 +225,13 @@ def sw_dp(qs, rs, qlens, dlos, W: int):
     best, bi, bw, bs = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(4))
     if B == 0:
         return tb, best, bi, bw, bs
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib.sw_dp_launch(
-        qs.data_ptr(), rs.data_ptr(), qlens.data_ptr(), dlos.data_ptr(),
-        B, Lq, Lr, W, tb.data_ptr(), best.data_ptr(), bi.data_ptr(),
-        bw.data_ptr(), bs.data_ptr(), stream,
+    err = _launch(
+        dev, _lib.sw_dp_launch, qs.data_ptr(), rs.data_ptr(), qlens.data_ptr(),
+        dlos.data_ptr(), B, Lq, Lr, W, tb.data_ptr(), best.data_ptr(),
+        bi.data_ptr(), bw.data_ptr(), bs.data_ptr(),
     )
     _raise_on(err, "sw_dp")
-    LAUNCHES["sw_dp"] += 1
-    DP_SHAPES[(B, Lq, W)] += 1
+    _count_launch("sw_dp", (B, Lq, W))
     return tb, best, bi, bw, bs
 
 
@@ -318,25 +365,29 @@ def sw_traceback(tb, best, bi, bw, bs, dlos, W: int):
     n_steps, q0, r0 = (torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3))
     if B == 0:
         return packed, n_steps, q0, r0
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib.sw_traceback_launch(
-        tb.data_ptr(), best.data_ptr(), bi.data_ptr(), bw.data_ptr(),
-        bs.data_ptr(), dlos.data_ptr(), B, Lq, W, max_steps, packed.data_ptr(),
-        n_steps.data_ptr(), q0.data_ptr(), r0.data_ptr(), stream,
+    err = _launch(
+        dev, _lib.sw_traceback_launch, tb.data_ptr(), best.data_ptr(),
+        bi.data_ptr(), bw.data_ptr(), bs.data_ptr(), dlos.data_ptr(), B, Lq, W,
+        max_steps, packed.data_ptr(), n_steps.data_ptr(), q0.data_ptr(),
+        r0.data_ptr(),
     )
     _raise_on(err, "sw_traceback")
-    LAUNCHES["sw_traceback"] += 1
+    _count_launch("sw_traceback")
     return packed, n_steps, q0, r0
 
 
-def traceback_restages(reset: bool = False) -> int:
-    """Re-stages of the sw_traceback kernel since the library was loaded or
-    last reset: tiles a walk staged and waited for after its first, because
-    it left the window of lanes it was reading. Synchronises the card."""
+def traceback_restages(reset: bool = False, device="cuda") -> int:
+    """Re-stages of the sw_traceback kernel on `device` since the library
+    was loaded or last reset: tiles a walk staged and waited for after its
+    first, because it left the window of lanes it was reading. Waits for
+    `device`'s current stream (the launches the count is to include), not
+    for the card's other streams."""
     build()
-    torch.cuda.synchronize()
+    dev = torch.device(device)
     count = ctypes.c_ulonglong(0)
-    err = _lib.sw_traceback_restages(ctypes.byref(count), int(reset))
+    with torch.cuda.device(dev):
+        torch.cuda.current_stream(dev).synchronize()
+        err = _lib.sw_traceback_restages(ctypes.byref(count), int(reset))
     if err != 0:
         raise RuntimeError(f"sw_traceback_restages: CUDA error {err}")
     return count.value

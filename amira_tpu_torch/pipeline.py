@@ -8,12 +8,14 @@ closest-reference matching -> k-mer copy numbers -> filtered results TSV.
 Port of `amira_tpu/pipeline.py`: every single-isolate route and mode
 (pandora JSON or SAM gene calls, or pandora map; FASTQ reads or an
 assembly; --meta, --promoter-mutations, --assemble-paths, --debug).
-`args.device` (a torch device name, "cuda" or "cpu") is resolved once and
-passed down to the graph-build cache, the aligner (the SAM route's
-consensus QC, polishing, promoters, path assembly) and the k-mer table; the
-phase timer synchronises on it. Graph builds are single-device:
---dist-build raises NotImplementedError before anything runs
-(`check_ported`).
+`args.device` (a torch device name: "cuda", "cuda:N" or "cpu") is
+resolved once and passed down to the graph-build cache, the aligner (the
+SAM route's consensus QC, polishing, promoters, path assembly) and the
+k-mer table; the phase timer synchronises on its current stream. The
+initial and final graph builds are distributed over every visible device
+of that type when there are two or more (`parallel/distgraph.py`), unless
+--no-dist-build is given; every other build is single-device, through the
+build cache.
 """
 
 from __future__ import annotations
@@ -58,19 +60,11 @@ from .results import (
     write_pandora_gene_calls,
     write_reads_per_AMR_gene,
 )
-from . import resolve_device
+from . import resolve_device, visible_devices
 from .tracing import TIMER, phase
 from .graph_cache import GraphBuildCache
+from .parallel.distgraph import distributed_graph_build
 from .vocab import GeneVocab
-
-
-def check_ported(args) -> None:
-    """Raise NotImplementedError for a feature outside the ported path:
-    multi-device graph builds (--dist-build)."""
-    if args.dist_build is True:
-        raise NotImplementedError(
-            "amira_tpu_torch: --dist-build not yet ported (use amira_tpu)"
-        )
 
 
 def run_pandora_map(
@@ -192,11 +186,9 @@ def build_and_correct_graph(
 def run_pipeline(args) -> None:
     """The full pipeline (reference main(), __main__.py:417-804) on
     `args.device`."""
-    check_ported(args)
     start_time = time.time()
     device = resolve_device(getattr(args, "device", "cuda"))
-    TIMER.phases.clear()
-    TIMER.device = device
+    TIMER.reset(device)
     import random
 
     random.seed(args.seed)
@@ -293,10 +285,26 @@ def run_pipeline(args) -> None:
 
     vocab = GeneVocab()
     build_cache = GraphBuildCache(device)
+    # The initial and final builds are distributed by default when two or
+    # more devices of --device's type are visible (the graph is identical to
+    # the single-device build's; tests/test_torch_distgraph.py pins the
+    # TSV); --no-dist-build opts out, and one device builds alone.
+    dist_devices = (
+        visible_devices(device.type) if args.dist_build is not False else []
+    )
+    use_dist = len(dist_devices) >= 2
+
+    def _initial_or_final_build(reads_d, kk, pos_d):
+        if use_dist:
+            return distributed_graph_build(
+                reads_d, kk, dist_devices, vocab=vocab, gene_positions=pos_d
+            )
+        return build_graph(reads_d, kk, pos_d, vocab, build_cache)
+
     if not args.quiet:
         sys.stderr.write("\namira-tpu: building initial gene-mer graph.\n")
     with phase("initial_graph_build", items=len(annotatedReads), unit="reads"):
-        graph = build_graph(annotatedReads, 3, gene_position_dict, vocab, build_cache)
+        graph = _initial_or_final_build(annotatedReads, 3, gene_position_dict)
     if args.debug:
         for node in graph.all_nodes():
             graph.color_node(node, sample_genesOfInterest)
@@ -370,9 +378,8 @@ def run_pipeline(args) -> None:
     if not args.quiet:
         sys.stderr.write("\namira-tpu: building corrected gene-mer graph.\n")
     with phase("final_graph_build", items=len(new_annotatedReads), unit="reads"):
-        graph = build_graph(
-            new_annotatedReads, geneMer_size, new_gene_position_dict,
-            vocab, build_cache,
+        graph = _initial_or_final_build(
+            new_annotatedReads, geneMer_size, new_gene_position_dict
         )
     write_pandora_gene_calls(
         args.output_dir,

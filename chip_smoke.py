@@ -26,11 +26,14 @@ Run from the root of a checkout. Phases, each printing its own lines:
    must write tests/goldens/amira_results_seed7.tsv byte for byte.
 4. The main path at a real isolate size: a 4,003-slot E. coli-like genome,
    amrX at two loci plus amrY, 10-20 genes (4-8 kb) per read, 5% gene-call
-   noise, seed 17, --reads reads (default 50,000, about 300 Mbp). The CLI
-   runs with --device cuda; the result must be two amrX rows and one amrY
-   row matching allele NG001 at >= 99% identity, every kernel of the path
-   must have launched, the large graph build must have hashed its windows
-   on the card and the dense k-mer table must have lived there.
+   noise, seed 17, --reads reads (default 50,000, about 300 Mbp). The
+   isolate is generated in a child process with PYTHONHASHSEED=0, started
+   before phase 1's build so that it overlaps phases 1-3, and the SHA-256
+   of its decompressed FASTQ is printed: every call runs on the same bases.
+   The CLI runs with --device cuda; the result must be two amrX rows and
+   one amrY row matching allele NG001 at >= 99% identity, every kernel of
+   the path must have launched, the large graph build must have hashed its
+   windows on the card and the dense k-mer table must have lived there.
 5. The single-isolate features beyond the main path, with --device cuda:
    a. the kernels' W = 512 instances (the path assembly's polishing band):
       ptxas's registers and spills, both kernels exact against their plain
@@ -51,14 +54,28 @@ Run from the root of a checkout. Phases, each printing its own lines:
       must write the committed goldens (tests/goldens/, written by
       amira_tpu) byte for byte, and --assemble-paths on the seed-7 isolate
       the same path FASTAs as the assembly on the CPU.
+6. Several isolates and several shards, with --device cuda:
+   a. the batch driver (`amira_tpu_torch.batch.run_batch`) on a manifest of
+      BATCH_ISOLATES copies of phase 4's isolate, with 1 and with 4 workers
+      (four CUDA streams on the one card): every amira_results.tsv must be
+      phase 4's byte for byte and every isolate must have launched both
+      kernels. Prints each run's wall, isolates per hour, peak device
+      memory and the host's peak resident set;
+   b. the distributed graph build of --dist-build
+      (`parallel/distgraph.distributed_graph_build`) on phase 4's initial
+      gene calls at k = 3, over DIST_SHARDS shards of the card and over the
+      CPU: the graphs must be equal. Prints the seconds of both and of the
+      cached single-device build. (With one card the CLI never takes this
+      path, so this phase is what drives it there.)
 
 The next-to-last lines are the card line and one JSON object describing
 each kernel; the last line is {"ok": true, "device": {...}}. Any failed
 phase exits non-zero without that line, as does a machine without CUDA.
 The kernels JSON line reports each kernel at the main path's largest
 launch, (B, Lq, W) = (980, 1024, 256), with its launches on the main path
-(phase 4), on the SAM route (5b) and in the path assembly (5c), and its
-W = 512 checks and time (5a). Data, outputs and a JSON summary
+(phase 4), on the SAM route (5b), in the path assembly (5c) and in each
+batch (6a, summed over its isolates), and its W = 512 checks and time
+(5a). Data, outputs and a JSON summary
 (chip_work/chip_smoke_summary.json) go under chip_work/, which .gitignore
 lists.
 """
@@ -66,6 +83,7 @@ lists.
 from __future__ import annotations
 
 import argparse
+import atexit
 import csv
 import json
 import os
@@ -97,11 +115,19 @@ W512_EDGE_SHAPE = (512, 192, 37)
 W512_RANDOM_SHAPE = (512, 192, 24)
 # reads of the phase-4 isolate that phase 5b's SAM route takes, and those
 # it seeds both ways (the per-gene loop costs seconds per read). The route
-# costs about 6 ms of host time a read on the H100's host (PERF.md): all
-# 50,000 reads took this script to 917 s of its 1,200, so it takes the
-# first 20,000 and ends near 700 s, with room for the host's spread.
-SAM_READS = 20_000
+# costs about 5-6 ms of host time a read on the H100's host (PERF.md): all
+# 50,000 reads took this script to 917 s of its 1,200. It takes the first
+# 10,000 (20,000 before phases 6a and 6b, which add about 200 s), so that
+# the script ends near half its limit, with room for the host's spread.
+SAM_READS = 10_000
 SEEDING_READS = 1
+# phase 6a: a batch of this many copies of the phase-4 isolate, run once per
+# worker count (BASELINE config 4 is 32 isolates per host; four at a time
+# fill four streams on the card)
+BATCH_ISOLATES = 4
+BATCH_WORKERS = (1, 4)
+# phase 6b: shards of the distributed build on the one card
+DIST_SHARDS = 4
 
 # Bounds. H100 SXM: HBM3 at 3.35 TB/s (NVIDIA's data sheet); int32 issue of
 # 132 SMs x 64 int32 lanes x 1.98 GHz boost clock (Hopper white paper).
@@ -637,23 +663,72 @@ def check_scale_rows(out, label):
     return rows
 
 
-def run_main_path(n_reads, device):
-    """Phase 4: the main path at a real isolate size. Returns its summary,
-    the isolate's files and the output directory."""
-    import torch
+def scale_files(d, n_reads):
+    """Generates phase 4's isolate under `d`/data (scale_run.py's generator
+    cut to `n_reads` reads) and writes its files, gene sequences and the
+    SHA-256 of its decompressed FASTQ to `d`/files.json. Run by
+    start_scale_isolate in a child process with PYTHONHASHSEED=0:
+    make_isolate draws gene sequences in the order of a set of names, which
+    follows string hashing, so the bases are the same in every call only
+    with the hash seed fixed."""
+    import gzip
+    import hashlib
 
-    from amira_tpu_torch.ops import graph_tables, kmer, sw_batch
     from synthetic import make_isolate
 
-    d = os.path.join(WORK, "scale")
-    t0 = time.time()
     files = make_isolate(
         os.path.join(d, "data"), n_reads=n_reads, seed=17, layout=scale_layout(),
         amr_genes=("amrX", "amrY"), genes_per_read=(10, 20), gene_len=400,
         fast=True, call_noise=0.05,
     )
-    gen_s = time.time() - t0
-    print(f"phase 4 generated {n_reads} reads in {gen_s:.1f} s (host, not timed below)")
+    digest = hashlib.sha256()
+    with gzip.open(files["fastq"], "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 24), b""):
+            digest.update(chunk)
+    files["fastq_sha256"] = digest.hexdigest()
+    with open(os.path.join(d, "files.json"), "w") as f:
+        json.dump(files, f)
+
+
+def start_scale_isolate(n_reads):
+    """Starts generating phase 4's isolate (scale_files) in a child process
+    with PYTHONHASHSEED=0, so that it overlaps phases 1-3; returns
+    (process, directory, start time)."""
+    d = os.path.join(WORK, "scale")
+    os.makedirs(d, exist_ok=True)
+    env = dict(os.environ, PYTHONHASHSEED="0")
+    env["PYTHONPATH"] = os.pathsep.join([ROOT, os.path.join(ROOT, "tests")])
+    code = f"import chip_smoke; chip_smoke.scale_files({d!r}, {n_reads})"
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env)
+    # a phase that fails before phase 4 exits: stop the child with it
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, d, time.time()
+
+
+def wait_scale_isolate(started, n_reads):
+    """Waits for start_scale_isolate's child; returns the isolate's files."""
+    proc, d, t0 = started
+    if proc.wait() != 0:
+        fail(f"generating phase 4's isolate failed (exit {proc.returncode})")
+    with open(os.path.join(d, "files.json")) as f:
+        files = json.load(f)
+    print(
+        f"phase 4 generated {n_reads} reads in a child process (PYTHONHASHSEED=0) "
+        f"{time.time() - t0:.1f} s after it started (host, overlapping phases 1-3, "
+        f"not timed below); FASTQ sha256 {files['fastq_sha256']}"
+    )
+    return files
+
+
+def run_main_path(files, device):
+    """Phase 4: the main path at a real isolate size, on the isolate of
+    start_scale_isolate. Returns its summary and the output directory."""
+    import torch
+
+    from amira_tpu_torch.ops import graph_tables, kmer, sw_batch
+
+    d = os.path.join(WORK, "scale")
+    n_reads = files["n_reads"]
     out = os.path.join(d, "out")
     for counts in (sw_batch.LAUNCHES, graph_tables.DEVICE_RUNS, kmer.DENSE_TABLES):
         for key in counts:
@@ -688,7 +763,7 @@ def run_main_path(n_reads, device):
         fail("the dense k-mer table was not allocated on the card")
     return {
         "reads": n_reads,
-        "generate_seconds": gen_s,
+        "fastq_sha256": files["fastq_sha256"],
         "wall_seconds": wall_s,
         "peak_device_memory_bytes": peak,
         "launches": launches,
@@ -697,7 +772,7 @@ def run_main_path(n_reads, device):
         "dense_tables": dict(kmer.DENSE_TABLES),
         "phases": phases,
         "rows": rows,
-    }, files, out
+    }, out
 
 
 def ptxas_report(path):
@@ -1148,6 +1223,217 @@ def check_modes(device):
     return out
 
 
+class RssPeak:
+    """The process's resident set size (VmRSS of /proc/self/status) sampled
+    every 50 ms on a thread while active: its value on entry and its peak
+    (bytes)."""
+
+    def __init__(self):
+        import threading
+
+        self.start = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+
+    @staticmethod
+    def _rss():
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+        return 0
+
+    def _sample(self):
+        while not self._stop.wait(0.05):
+            self.peak = max(self.peak, self._rss())
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=10)
+        self.peak = max(self.peak, self._rss())
+
+
+def run_batch_phase(files, scale_out, device):
+    """Phase 6a: `batch.run_batch` on a manifest of BATCH_ISOLATES copies of
+    phase 4's isolate (its input files, an output directory each) with
+    --device cuda, once per worker count in BATCH_WORKERS (workers > 1: one
+    stream per worker thread on the one card). Every isolate's
+    amira_results.tsv must equal phase 4's byte for byte and every isolate
+    must have launched both kernels (counted in its own thread:
+    `sw_batch.thread_launches`; `sw_batch.LAUNCHES` sums over the batch).
+    Prints each run's wall, isolates per hour, peak device memory and the
+    host's peak resident set."""
+    import torch
+
+    from amira_tpu_torch import batch
+    from amira_tpu_torch.ops import sw_batch
+
+    with open(os.path.join(scale_out, "amira_results.tsv")) as f:
+        want = f.read()
+    entry = {
+        "pandoraJSON": files["calls"], "gene-positions": files["positions"],
+        "reads": files["fastq"], "species": "Escherichia_coli",
+        "amr-fasta": files["amr_fasta"], "amr-calls": files["amr_calls"],
+        "core-genes": files["core_genes"], "plasmid-genes": files["plasmid_genes"],
+        "quiet": True,
+    }
+    real_run_isolate = batch.run_isolate
+    own_launches = {}
+
+    def counted(argv, dev=None):
+        sw_batch.thread_launches(reset=True)
+        summary = real_run_isolate(argv, dev)
+        own_launches[summary["output"]] = sw_batch.thread_launches(reset=True)
+        return summary
+
+    runs = {}
+    for workers in BATCH_WORKERS:
+        root = os.path.join(WORK, "batch", f"w{workers}")
+        manifest = [
+            {"name": f"iso{i}", **entry, "output": os.path.join(root, f"iso{i}")}
+            for i in range(BATCH_ISOLATES)
+        ]
+        for key in sw_batch.LAUNCHES:
+            sw_batch.LAUNCHES[key] = 0
+        sw_batch.DP_SHAPES.clear()
+        own_launches.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        batch.run_isolate = counted
+        try:
+            with RssPeak() as rss:
+                t0 = time.time()
+                summaries = batch.run_batch(manifest, workers=workers, quiet=True, device=device)
+                torch.cuda.synchronize()
+                wall_s = time.time() - t0
+        finally:
+            batch.run_isolate = real_run_isolate
+        launches = dict(sw_batch.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        per_hour = 3600.0 * len(manifest) / wall_s
+        print(
+            f"phase 6a batch of {len(manifest)} isolates, {workers} worker(s) "
+            f"({workers} stream(s) on {device}): {wall_s:.1f} s wall, {per_hour:.1f} isolates "
+            f"per hour, peak device memory {peak} bytes ({peak / 2**30:.2f} GiB), host resident "
+            f"set {rss.start} bytes at the start, peak {rss.peak} bytes ({rss.peak / 2**30:.2f} "
+            f"GiB), launches {launches} (summed over the batch)"
+        )
+        phase_means = {}
+        for s in summaries:
+            with open(os.path.join(s["output"], "phase_timings.json")) as f:
+                for p in json.load(f):
+                    phase_means[p["phase"]] = phase_means.get(p["phase"], 0.0) + p["seconds"] / len(summaries)
+        print(
+            f"phase 6a phases (workers={workers}, mean s over isolates): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in phase_means.items())
+        )
+        for s in summaries:
+            mine = own_launches.get(s["output"], {})
+            print(
+                f"phase 6a isolate {os.path.basename(s['output'])} (workers={workers}): "
+                f"{s['status']}, {s['seconds']} s, launches {mine}"
+            )
+            if s["status"] != "ok":
+                fail(f"phase 6a: isolate {s['output']} failed: {s['status']}")
+            with open(s["results_tsv"]) as f:
+                if f.read() != want:
+                    fail(f"phase 6a: {s['results_tsv']} differs from phase 4's amira_results.tsv")
+            if not all(mine.get(k, 0) > 0 for k in ("sw_dp", "sw_traceback")):
+                fail(f"phase 6a: isolate {s['output']} did not launch both kernels ({mine})")
+        runs[f"w{workers}"] = {
+            "isolates": len(manifest), "workers": workers, "wall_seconds": wall_s,
+            "isolates_per_hour": per_hour, "peak_device_memory_bytes": peak,
+            "host_rss_start_bytes": rss.start, "host_rss_peak_bytes": rss.peak,
+            "launches": launches,
+            "isolates_seconds": [s["seconds"] for s in summaries],
+            "phase_means": phase_means,
+            "isolate_launches": [own_launches[s["output"]] for s in summaries],
+        }
+    return runs
+
+
+def graph_state(graph):
+    """What phase 6b holds equal between two graphs: node hashes in order
+    with coverages, read lists and edge lists; edges in order with their
+    endpoints, directions and coverage; readNodes."""
+    nodes = [
+        (h, n.coverage, n.reads, n.fwd_edges, n.bwd_edges)
+        for h, n in graph.get_nodes().items()
+    ]
+    edges = [
+        (key, e.src, e.tgt, e.src_dir, e.tgt_dir, e.coverage)
+        for key, e in graph.get_edges().items()
+    ]
+    return nodes, edges, graph.get_readNodes()
+
+
+def run_dist_build(files, device):
+    """Phase 6b: the distributed graph build (--dist-build's) on the card.
+    The initial gene calls of phase 4's isolate, as the pipeline ingests
+    them, are built at k = 3 by `distributed_graph_build` over DIST_SHARDS
+    shards of the one card ([cuda:0] * DIST_SHARDS) and over ["cpu"]; the
+    two graphs must be equal (graph_state). Prints the seconds of both
+    (the card's twice: its first call and a second), and of the cached
+    single-device `build_graph` on the card, as the pipeline's default
+    build."""
+    import torch
+
+    from amira_tpu_torch.graph_cache import GraphBuildCache
+    from amira_tpu_torch.graph_utils import build_graph
+    from amira_tpu_torch.parallel.distgraph import distributed_graph_build
+    from amira_tpu_torch.preprocess import (
+        load_species_specific_files, process_pandora_json, process_reference_alleles,
+    )
+    from amira_tpu_torch.vocab import GeneVocab
+
+    fasta, _, _, _ = load_species_specific_files(
+        "Escherichia_coli", files["amr_fasta"], files["amr_calls"], files["core_genes"],
+        files["plasmid_genes"],
+    )
+    _, genes_of_interest = process_reference_alleles(fasta, False)
+    reads, _, positions = process_pandora_json(files["calls"], genes_of_interest, files["positions"])
+    reads = dict(sorted(reads.items()))
+    n_genes = sum(len(g) for g in reads.values())
+    card = torch.device(device, 0) if torch.device(device).index is None else torch.device(device)
+
+    def timed(build):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        graph = build()
+        torch.cuda.synchronize()
+        return graph, time.time() - t0
+
+    dist = lambda devs: distributed_graph_build(  # noqa: E731
+        reads, 3, devs, vocab=GeneVocab(), gene_positions=positions
+    )
+    on_card, card_s = timed(lambda: dist([card] * DIST_SHARDS))
+    _, card_again_s = timed(lambda: dist([card] * DIST_SHARDS))
+    on_cpu, cpu_s = timed(lambda: dist(["cpu"]))
+    _, cached_s = timed(lambda: build_graph(reads, 3, positions, GeneVocab(), GraphBuildCache(card)))
+    t0 = time.time()
+    state = graph_state(on_card)
+    equal = state == graph_state(on_cpu)
+    compare_s = time.time() - t0
+    print(
+        f"phase 6b distributed build (k=3, {len(reads)} reads, {n_genes} genes, "
+        f"{len(state[0])} nodes, {len(state[1])} edges): {DIST_SHARDS} shards on {card} "
+        f"{card_s:.3f} s (again {card_again_s:.3f} s), 1 shard on the CPU {cpu_s:.3f} s, "
+        f"cached single-device build_graph on {card} {cached_s:.3f} s; graphs equal: {equal} "
+        f"(compared in {compare_s:.1f} s)"
+    )
+    if not equal:
+        fail("phase 6b: the distributed build on the card differs from the one on the CPU")
+    return {
+        "reads": len(reads), "genes": n_genes, "nodes": len(state[0]), "edges": len(state[1]),
+        "shards": DIST_SHARDS, "card_seconds": card_s, "card_again_seconds": card_again_s,
+        "cpu_seconds": cpu_s, "cached_build_seconds": cached_s,
+    }
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reads", type=int, default=50_000, help="reads of the phase-4 isolate")
@@ -1168,6 +1454,7 @@ def main():
     ).stdout.strip().splitlines()[0]
     print(f"phase 1 device: {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     shutil.rmtree(WORK, ignore_errors=True)
+    scale_isolate = start_scale_isolate(args.reads)
     t0 = time.time()
     lib = sw_batch.build()
     print(f"phase 1 build: {os.path.relpath(lib, ROOT)} in {time.time() - t0:.2f} s")
@@ -1187,7 +1474,8 @@ def main():
     lap("phase 2")
     check_golden(device)
     lap("phase 3")
-    summary, files, scale_out = run_main_path(args.reads, device)
+    files = wait_scale_isolate(scale_isolate, args.reads)
+    summary, scale_out = run_main_path(files, device)
     lap("phase 4")
     w512_edges = check_w512_edges(device, ptxas_report(ptxas_path))
     lap("phase 5a edges")
@@ -1199,6 +1487,10 @@ def main():
     lap("phase 5a at 5c's shape")
     modes = check_modes(device)
     lap("phase 5d")
+    batch_runs = run_batch_phase(files, scale_out, device)
+    lap("phase 6a")
+    dist = run_dist_build(files, device)
+    lap("phase 6b")
 
     kernels = []
     for name, replaces in (
@@ -1214,6 +1506,7 @@ def main():
             **timed[MAIN_SHAPE][name],
             "launches_sam_route": sam["launches"][name],
             "launches_assemble_paths": asm["launches"][name],
+            "launches_batch": {k: r["launches"][name] for k, r in batch_runs.items()},
             "w512": {
                 **w512_timed[name],
                 "edge_max_abs_err": w512_edges["edge_max_abs_err"][name],
@@ -1228,7 +1521,7 @@ def main():
         json.dump(
             {"card": card, "kernels": kernels, "timed": list(timed.values()), "sweep": sweep,
              "main_path": summary, "sam_route": sam, "assemble_paths": asm, "modes": modes,
-             "clock": clock},
+             "batch": batch_runs, "dist_build": dist, "clock": clock},
             f, indent=1,
         )
     print(card)

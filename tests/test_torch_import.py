@@ -20,6 +20,7 @@ import amira_tpu.ops.align as jax_align
 import amira_tpu.ops.hashing as jax_hashing
 import amira_tpu.ops.host_tables as jax_host_tables
 import amira_tpu_torch
+import amira_tpu_torch.native
 import amira_tpu_torch.ops.align as port_align
 import amira_tpu_torch.ops.hashing as port_hashing
 import amira_tpu_torch.ops.host_tables as port_host_tables
@@ -115,18 +116,30 @@ def test_cuda_request_without_gpu_raises(monkeypatch, tmp_path):
     assert amira_tpu_torch.resolve_device("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize("extra", [pytest.param(["--dist-build"], id="extra3")])
-def test_unported_features_raise(extra, tmp_path):
+def test_dist_build_is_accepted_and_runs(tmp_path):
+    """--dist-build runs the pipeline (on the CPU, one device: the
+    single-device build) and writes the TSV of a run without it."""
     from amira_tpu_torch.__main__ import main
+    from synthetic import make_isolate
 
-    argv = [
-        "--pandoraJSON", "calls.json", "--gene-positions", "pos.json",
-        "--reads", "reads.fastq", "--species", "Escherichia_coli",
-        "--output", str(tmp_path / "out"), "--quiet", "--device", "cpu",
-        *extra,
-    ]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        main(argv)
+    files = make_isolate(str(tmp_path / "data"), seed=1, n_reads=40)
+    outs = {}
+    for name, extra in (("plain", []), ("dist", ["--dist-build"])):
+        out = str(tmp_path / name)
+        argv = [
+            "--pandoraJSON", files["calls"], "--gene-positions", files["positions"],
+            "--reads", files["fastq"], "--species", "Escherichia_coli",
+            "--amr-fasta", files["amr_fasta"], "--amr-calls", files["amr_calls"],
+            "--core-genes", files["core_genes"], "--plasmid-genes", files["plasmid_genes"],
+            "--output", out, "--quiet", "--device", "cpu", *extra,
+        ]
+        try:
+            main(argv)
+        except SystemExit as e:
+            assert e.code in (None, 0)
+        with open(os.path.join(out, "amira_results.tsv")) as f:
+            outs[name] = f.read()
+    assert outs["dist"] == outs["plain"]
 
 
 @pytest.mark.parametrize(
@@ -141,21 +154,108 @@ def test_unported_features_raise(extra, tmp_path):
     ],
 )
 def test_single_isolate_features_are_ported(extra):
+    """Every flag combination parses, and no feature is gated: the pipeline
+    raises NotImplementedError for none (its gate, `check_ported`, went
+    when --dist-build was ported)."""
+    from amira_tpu_torch import pipeline
     from amira_tpu_torch.__main__ import get_options
-    from amira_tpu_torch.pipeline import check_ported
 
-    check_ported(get_options(["--species", "Escherichia_coli", *extra]))
+    args = get_options(["--species", "Escherichia_coli", *extra])
+    assert args.device == "cuda"
+    assert not hasattr(pipeline, "check_ported")
+    assert "NotImplementedError" not in inspect.getsource(pipeline)
+
+
+# sha256 of amira_tpu/native/_fastio.c, which the port leaves as it is
+JAX_FASTIO_SHA256 = "0386c0f30935ad2acbc1b4b86ac59040dd2d6cbc5f455e7044c3156f2526bc11"
+# the lines of the JAX copy that the port's copy changes: the fast path's
+# signature and its early return (the size ceiling), the output buffer's
+# growth (the text ceiling), the argument parsing (the optional max_bytes)
+# and two method docstrings (parse_fastq's, and pack_dna_chunk's stale one)
+FASTIO_REMOVED = [
+    " * (NULL with an exception set on real Python-level errors). */",
+    "parse_fastq_fast(const char *path)",
+    "    if (fsz <= 0) {",
+    "        return NULL;",
+    "                size_t ncap = outcap * 2;",
+    '    if (!PyArg_ParseTuple(args, "s", &path))',
+    "        return NULL;",
+    "",
+    "    PyObject *fast = parse_fastq_fast(path);",
+    '     "parse_fastq(path) -> {name: (seq, qual)}"},',
+    '     "pack_dna_chunk(seqs, start, chunk_codes) -> (words, bad, next_start)"},',
+]
 
 
 def test_native_helper_is_built_from_the_ports_own_copy():
+    import difflib
+    import hashlib
     import importlib
 
     build = importlib.import_module("amira_tpu_torch.native.build")
     assert os.path.dirname(build._SRC) == os.path.join(PORT_DIR, "native")
-    with open(build._SRC, "rb") as f, open(
-        os.path.join(REPO, "amira_tpu", "native", "_fastio.c"), "rb"
-    ) as g:
-        assert f.read() == g.read()
+    with open(os.path.join(REPO, "amira_tpu", "native", "_fastio.c"), "rb") as g:
+        jax_src = g.read()
+    assert hashlib.sha256(jax_src).hexdigest() == JAX_FASTIO_SHA256
+    with open(build._SRC, "rb") as f:
+        port_src = f.read()
+    diff = [
+        line for line in difflib.unified_diff(
+            jax_src.decode().splitlines(), port_src.decode().splitlines(), lineterm="", n=0
+        )
+        if line[:1] in "+-" and line[:3] not in ("+++", "---")
+    ]
+    assert [line[1:] for line in diff if line[0] == "-"] == FASTIO_REMOVED
+    for line in (line[1:].strip() for line in diff if line[0] == "+"):
+        assert (
+            not line
+            or line.startswith(("/*", "*", "}", "break;", "failed = 1", "return NULL;"))
+            or any(w in line for w in ("max_bytes", "maxcap", "FASTQ_", "pack_dna_chunk(", "next_offset"))
+        ), line
+
+
+def _fastq_files(tmp_path):
+    """A gzip FASTQ of random reads, the same uncompressed, and a gzip FASTQ
+    of one read repeated (its text is over 16 times its file)."""
+    import gzip
+
+    rng = np.random.RandomState(3)
+    records = []
+    for i in range(400):
+        seq = "".join(rng.choice(list("ACGT"), size=rng.randint(20, 600)))
+        qual = "".join(rng.choice(list("!#5?I"), size=len(seq)))
+        records.append(f"@read{i} extra words\n{seq}\n+\n{qual}\n")
+    paths = {"gzip": tmp_path / "r.fastq.gz", "plain": tmp_path / "r.fastq",
+             "repetitive_gzip": tmp_path / "rep.fastq.gz"}
+    with gzip.open(paths["gzip"], "wt") as f:
+        f.writelines(records)
+    paths["plain"].write_text("".join(records))
+    with gzip.open(paths["repetitive_gzip"], "wt") as f:
+        f.writelines(f"@rep{i}\n{'A' * 2000}\n+\n{'I' * 2000}\n" for i in range(300))
+    return paths
+
+
+@pytest.mark.parametrize("kind", ["gzip", "plain", "repetitive_gzip"])
+def test_native_parse_fastq_same_records_either_side_of_the_ceiling(kind, tmp_path, monkeypatch):
+    """parse_fastq reads a file whole up to its size ceiling (an optional
+    argument) and streams it above; the records are the same either way,
+    and the same as the Python reader's."""
+    from amira_tpu_torch import io as port_io
+    from amira_tpu_torch.native import load
+
+    native = load()
+    assert native is not None
+    path = str(_fastq_files(tmp_path)[kind])
+    size = os.path.getsize(path)
+    whole = native.parse_fastq(path)
+    assert len(whole) == (300 if kind == "repetitive_gzip" else 400)
+    for max_bytes in (size, size - 1, 1, 0):
+        assert native.parse_fastq(path, max_bytes) == whole, max_bytes
+    monkeypatch.setattr(amira_tpu_torch.native, "load", lambda: None)
+    python = port_io.parse_fastq(path)  # the Python reader
+    assert {k: (v["sequence"], v["quality"]) for k, v in python.items()} == {
+        k: tuple(v) for k, v in whole.items()
+    }
 
 
 def _small_batch(device, W=64, lq=96, B=6, seed=5):
