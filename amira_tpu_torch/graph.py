@@ -2,9 +2,10 @@
 
 Port of `amira_tpu/graph.py`. Every build goes through the incremental
 `GraphBuildCache` (`_build_cached`): a graph constructed with `cache=None`
-gets a fresh cache. (The JAX package's uncached device build gives the same
-graph for the same gene ids; it also tokenizes reads shorter than k, which
-can give a gene another id there.) Window hashing for reads that miss the
+gets a fresh cache on `device` (the card unless the caller names another),
+after every read's genes, short reads included, are interned in read order
+as the JAX package's uncached build interns them; so its gene ids, and with
+them its node hashes, are that build's. Window hashing for reads that miss the
 cache runs through `ops/graph_tables.pack_flat_windows` on the cache's
 device when the batch is large, or through the NumPy mirror
 (`ops/host_tables`) when small; node/edge/coverage tables are aggregated
@@ -128,17 +129,26 @@ class Edge:
 
 
 class GeneMerGraph:
-    def __init__(self, readDict, kmerSize, gene_positions=None, vocab=None, cache=None):
+    def __init__(
+        self, readDict, kmerSize, gene_positions=None, vocab=None, cache=None, device=None
+    ):
+        """`device` serves only a build without `cache` (the cache carries
+        its own): None means the card, and raises without CUDA."""
         self._reads = dict(readDict)
         self._kmerSize = int(kmerSize)
         self._genePositions = gene_positions
         self._minNodeCoverage = 1
         self._minEdgeCoverage = 1
         self.vocab = vocab if vocab is not None else GeneVocab()
-        # every build goes through the cache: a one-off build gets its own
-        # (the pipeline's shared cache carries its device); only the tests'
-        # uncached constructor takes this CPU cache
-        self._cache = cache if cache is not None else GraphBuildCache("cpu")
+        if cache is None:
+            # a one-off build gets its own cache; the JAX package's uncached
+            # build (amira_tpu/graph.py:_build) interns every read's genes
+            # before it sets short reads aside, so gene ids follow read order
+            from . import resolve_device
+
+            cache = GraphBuildCache(resolve_device("cuda" if device is None else device))
+            self.vocab.encode_reads_batch(list(self._reads.values()))
+        self._cache = cache
         self._nodes_d: dict[int, Node] = {}
         self._edges_d: dict[int, Edge] = {}
         self._readNodes_d: dict[str, list] = {}
@@ -203,8 +213,9 @@ class GeneMerGraph:
         they were last seen at this k; node/edge/coverage tables are
         re-aggregated from cached per-read occurrence vectors with vectorized
         host group-bys. Produces a graph identical (including dict insertion
-        order and per-node read/edge-list order) to the JAX package's
-        uncached device build."""
+        order and per-node read/edge-list order) to the JAX package's cached
+        build with the same cache history; a fresh cache after the
+        constructor's read-order interning gives its uncached build."""
         k = self._kmerSize
         cache = self._cache
         cache.bind_vocab(self.vocab)

@@ -17,8 +17,11 @@ from . import clean
 from .graph import GeneMerGraph
 
 
-def build_graph(read_dict, kmer_size, gene_positions=None, vocab=None, cache=None):
-    return GeneMerGraph(read_dict, kmer_size, gene_positions, vocab=vocab, cache=cache)
+def build_graph(read_dict, kmer_size, gene_positions=None, vocab=None, cache=None, device=None):
+    """`device` serves only a build without `cache` (see GeneMerGraph)."""
+    return GeneMerGraph(
+        read_dict, kmer_size, gene_positions, vocab=vocab, cache=cache, device=device
+    )
 
 
 def iterative_bubble_popping(
@@ -37,6 +40,7 @@ def iterative_bubble_popping(
     vocab=None,
     quiet=True,
     cache=None,
+    device=None,
 ):
     """Iterate {rebuild, filter, correct, trim tips, pop bubbles} until the
     node count stops changing (amira/graph_utils.py:127-181). Sub-stage
@@ -64,7 +68,7 @@ def iterative_bubble_popping(
             )
         t0 = _tick()
         graph = build_graph(
-            new_annotatedReads, geneMer_size, new_gene_position_dict, vocab, cache
+            new_annotatedReads, geneMer_size, new_gene_position_dict, vocab, cache, device
         )
         stage_s["build"] += _tick() - t0
         t0 = _tick()
@@ -83,7 +87,7 @@ def iterative_bubble_popping(
         stage_s["filter_correct"] += _tick() - t0
         t0 = _tick()
         graph = build_graph(
-            new_annotatedReads, geneMer_size, new_gene_position_dict, vocab, cache
+            new_annotatedReads, geneMer_size, new_gene_position_dict, vocab, cache, device
         )
         stage_s["build"] += _tick() - t0
         if graph.get_total_number_of_nodes() == prev_nodes:
@@ -104,7 +108,7 @@ def iterative_bubble_popping(
         stage_s["tips"] += _tick() - t0
         t0 = _tick()
         graph = build_graph(
-            new_annotatedReads, geneMer_size, new_gene_position_dict, vocab, cache
+            new_annotatedReads, geneMer_size, new_gene_position_dict, vocab, cache, device
         )
         stage_s["build"] += _tick() - t0
         short_reads.update(graph.get_short_read_annotations())
@@ -262,6 +266,7 @@ def choose_kmer_size(
     sample_genesOfInterest,
     vocab=None,
     cache=None,
+    device=None,
 ):
     """Largest odd k in [3, 15] such that every component keeps >= 80% of its
     AMR reads with >= 2k-1 genes (amira/graph_utils.py:258-296); k=3 when
@@ -275,7 +280,7 @@ def choose_kmer_size(
     if overall_mean_node_coverage >= 20:
         for k in range(3, 16, 2):
             graph = build_graph(
-                dict(new_annotatedReads), k, dict(new_gene_position_dict), vocab, cache
+                dict(new_annotatedReads), k, dict(new_gene_position_dict), vocab, cache, device
             )
             if graph.is_lazy:
                 if _all_components_valid_lazy(graph, sample_genesOfInterest, k):

@@ -53,6 +53,16 @@ def gene_hash(tokens: torch.Tensor) -> torch.Tensor:
     return torch.sign(tokens) * h
 
 
+def _combine_hash_seq(seq_hashes: torch.Tensor) -> torch.Tensor:
+    """Collapse a (..., k) int64 hash sequence into one hash per window: a
+    splitmix64 chain seeded with k."""
+    k = seq_hashes.shape[-1]
+    acc = torch.full(seq_hashes.shape[:-1], k, dtype=torch.int64, device=seq_hashes.device)
+    for j in range(k):
+        acc = splitmix64(acc ^ seq_hashes[..., j].to(torch.int64))
+    return acc
+
+
 def _canonical_windows(fwd: torch.Tensor, k: int):
     """(..., k) signed hash windows -> (node hash int64, direction int8)."""
     rc = -fwd.flip(-1)
@@ -63,11 +73,8 @@ def _canonical_windows(fwd: torch.Tensor, k: int):
     rc_at = rc.gather(-1, first)[..., 0]
     fwd_is_canon = fwd_at <= rc_at  # ties (self-RC) impossible for odd k
     canon = torch.where(fwd_is_canon[..., None], fwd, rc)
-    acc = torch.full(canon.shape[:-1], k, dtype=torch.int64, device=fwd.device)
-    for j in range(k):
-        acc = splitmix64(acc ^ canon[..., j])
     direction = torch.where(fwd_is_canon, 1, -1).to(torch.int8)
-    return acc, direction
+    return _combine_hash_seq(canon), direction
 
 
 def genemer_windows(tokens, lengths, k: int):
@@ -108,3 +115,11 @@ def edge_key(src_hash, src_dir, tgt_hash, tgt_dir):
     acc = splitmix64(ca ^ 2)
     return splitmix64(acc ^ cb)
 
+
+def node_hash_from_signed_seq(seq) -> int:
+    """Canonical node hash of one gene-mer of signed tokens, as a Python int
+    holding the uint64 value (host-side helper; runs on the CPU)."""
+    seq = torch.as_tensor(seq, dtype=torch.int32)[None, :]
+    k = seq.shape[1]
+    out = genemer_windows(seq, torch.tensor([k], dtype=torch.int32), k)
+    return int(out["node_hash"][0, 0]) % (1 << 64)

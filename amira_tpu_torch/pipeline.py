@@ -115,10 +115,11 @@ def build_and_correct_graph(
     quiet,
     vocab,
     cache=None,
+    device=None,
 ):
     """k=3 pre-clean + k selection + iterative bubble popping
     (__main__.py:337-414)."""
-    graph = build_graph(new_annotatedReads, 3, new_gene_position_dict, vocab, cache)
+    graph = build_graph(new_annotatedReads, 3, new_gene_position_dict, vocab, cache, device)
     short_reads.update(graph.get_short_read_annotations())
     short_read_gene_positions.update(graph.get_short_read_gene_positions())
     graph.remove_low_coverage_components(5)
@@ -132,7 +133,7 @@ def build_and_correct_graph(
             os.path.join(output_dir, "mid_correction_gene_calls.json"),
             os.path.join(output_dir, "mid_correction_gene_positions.json"),
         )
-    graph = build_graph(new_annotatedReads, 3, new_gene_position_dict, vocab, cache)
+    graph = build_graph(new_annotatedReads, 3, new_gene_position_dict, vocab, cache, device)
     short_reads.update(graph.get_short_read_annotations())
     short_read_gene_positions.update(graph.get_short_read_gene_positions())
     graph.filter_graph(node_min_coverage, 1)
@@ -150,6 +151,7 @@ def build_and_correct_graph(
         sample_genesOfInterest,
         vocab,
         cache,
+        device,
     )
     overall_mean_node_coverage = overall_mean_node_coverages[geneMer_size]
     if not quiet:
@@ -174,6 +176,7 @@ def build_and_correct_graph(
         vocab,
         quiet,
         cache,
+        device,
     )
     return (
         new_annotatedReads,

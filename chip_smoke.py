@@ -67,6 +67,23 @@ Run from the root of a checkout. Phases, each printing its own lines:
       CPU: the graphs must be equal. Prints the seconds of both and of the
       cached single-device build. (With one card the CLI never takes this
       path, so this phase is what drives it there.)
+   c. the same build on a ("data", "table") mesh of 2 x 2 shards of the
+      card and on a ("host", "data", "table") mesh of 2 x 2 x 2: both
+      graphs must equal 6b's; prints each mesh's first and second call;
+   d. the bin-sharded k-mer table (`make_distributed_kmer_step`, the
+      stream split as `distributed_kmer_count` splits it) at k = 15 over
+      phase 4's reads on DIST_SHARDS shards of the card, each shard's bins
+      equal (torch.equal, on the card) to KmerCounter's dense table of the
+      same reads; prints the host packing, the step's and the counter's
+      seconds and peak device memory;
+   e. two processes (`parallel.multiproc`, gloo, four shards of the card
+      each): the ("host", "data", "table") = (2, 2, 2) count step on the
+      initial calls with "host" on the process boundary, and the k-mer step
+      at k = 15 on the first SAM_READS reads with its bins over all eight
+      shards, both held to the same steps in this process; prints the wall
+      and the bytes that crossed the process boundary;
+   f. `graft_entry.entry()` on the card, `dryrun_multichip` at 2, 4 and 8
+      shards of it, and `scaling_report`'s rows over the visible devices.
 
 The next-to-last lines are the card line and one JSON object describing
 each kernel; the last line is {"ok": true, "device": {...}}. Any failed
@@ -126,8 +143,9 @@ SEEDING_READS = 1
 # fill four streams on the card)
 BATCH_ISOLATES = 4
 BATCH_WORKERS = (1, 4)
-# phase 6b: shards of the distributed build on the one card
+# phases 6b and 6d: shards of the distributed build and k-mer table on the card
 DIST_SHARDS = 4
+KMER_K = 15  # the copy-number estimate's k (phases 6d and 6e; multiproc's)
 
 # Bounds. H100 SXM: HBM3 at 3.35 TB/s (NVIDIA's data sheet); int32 issue of
 # 132 SMs x 64 int32 lanes x 1.98 GHz boost clock (Hopper white paper).
@@ -1356,6 +1374,17 @@ def run_batch_phase(files, scale_out, device):
     return runs
 
 
+def card_timed(fn):
+    """fn() and its seconds, the card synchronized before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
 def graph_state(graph):
     """What phase 6b holds equal between two graphs: node hashes in order
     with coverages, read lists and edge lists; edges in order with their
@@ -1399,21 +1428,13 @@ def run_dist_build(files, device):
     reads = dict(sorted(reads.items()))
     n_genes = sum(len(g) for g in reads.values())
     card = torch.device(device, 0) if torch.device(device).index is None else torch.device(device)
-
-    def timed(build):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        graph = build()
-        torch.cuda.synchronize()
-        return graph, time.time() - t0
-
     dist = lambda devs: distributed_graph_build(  # noqa: E731
         reads, 3, devs, vocab=GeneVocab(), gene_positions=positions
     )
-    on_card, card_s = timed(lambda: dist([card] * DIST_SHARDS))
-    _, card_again_s = timed(lambda: dist([card] * DIST_SHARDS))
-    on_cpu, cpu_s = timed(lambda: dist(["cpu"]))
-    _, cached_s = timed(lambda: build_graph(reads, 3, positions, GeneVocab(), GraphBuildCache(card)))
+    on_card, card_s = card_timed(lambda: dist([card] * DIST_SHARDS))
+    _, card_again_s = card_timed(lambda: dist([card] * DIST_SHARDS))
+    on_cpu, cpu_s = card_timed(lambda: dist(["cpu"]))
+    _, cached_s = card_timed(lambda: build_graph(reads, 3, positions, GeneVocab(), GraphBuildCache(card)))
     t0 = time.time()
     state = graph_state(on_card)
     equal = state == graph_state(on_cpu)
@@ -1431,7 +1452,187 @@ def run_dist_build(files, device):
         "reads": len(reads), "genes": n_genes, "nodes": len(state[0]), "edges": len(state[1]),
         "shards": DIST_SHARDS, "card_seconds": card_s, "card_again_seconds": card_again_s,
         "cpu_seconds": cpu_s, "cached_build_seconds": cached_s,
-    }
+    }, (reads, positions, state)
+
+
+def run_table_meshes(initial, device):
+    """Phase 6c: `distributed_graph_build` of phase 6b's reads at k = 3 on
+    a ("data", "table") mesh of 2 x 2 shards of the card and on a ("host",
+    "data", "table") mesh of 2 x 2 x 2; each graph must equal phase 6b's
+    (graph_state). Prints both calls' seconds on each mesh."""
+    import numpy as np
+
+    from amira_tpu_torch import resolve_device
+    from amira_tpu_torch.parallel.distgraph import distributed_graph_build
+    from amira_tpu_torch.parallel.mesh import Mesh
+    from amira_tpu_torch.vocab import GeneVocab
+
+    reads, positions, want = initial
+    card = resolve_device(device + ":0")
+    out = {}
+    for shape, axes in (((2, 2), ("data", "table")), ((2, 2, 2), ("host", "data", "table"))):
+        mesh = Mesh(np.array([card] * int(np.prod(shape)), dtype=object).reshape(shape), axes)
+        build = lambda: distributed_graph_build(  # noqa: E731
+            reads, 3, mesh, vocab=GeneVocab(), gene_positions=positions
+        )
+        graph, first_s = card_timed(build)
+        _, again_s = card_timed(build)
+        equal = graph_state(graph) == want
+        label = " x ".join(map(str, shape)) + " (" + ", ".join(axes) + ")"
+        print(
+            f"phase 6c distributed build on {label} shards of {card}: {first_s:.3f} s "
+            f"(again {again_s:.3f} s); graph equals phase 6b's: {equal}"
+        )
+        if not equal:
+            fail(f"phase 6c: the build on the {label} mesh differs from phase 6b's")
+        out[label] = {"seconds": first_s, "again_seconds": again_s}
+    return out
+
+
+def read_sequences(files, n=None):
+    """The phase-4 isolate's read sequences, in FASTQ order (the first n)."""
+    from amira_tpu_torch.io import parse_fastq
+
+    seqs = [r["sequence"] for r in parse_fastq(files["fastq"]).values()]
+    return seqs if n is None else seqs[:n]
+
+
+def run_dist_kmer(seqs, device):
+    """Phase 6d: the bin-sharded k-mer table at k = KMER_K over phase 4's
+    reads, over DIST_SHARDS shards of the card (`make_distributed_kmer_step`
+    on the stream split as `distributed_kmer_count` splits it), held with
+    torch.equal on the card to the dense table `KmerCounter` builds there
+    from the same reads, bin range by bin range (bin 4^k, the invalid
+    windows, left out; the padding bins past it must be zero). Prints the
+    host split and pack, the step's and the counter's seconds and the peak
+    device memory of each."""
+    import torch
+
+    from amira_tpu_torch import resolve_device
+    from amira_tpu_torch.ops.kmer import KmerCounter, _concat_codes
+    from amira_tpu_torch.parallel.distgraph import kmer_layout, kmer_rows, make_distributed_kmer_step
+
+    card = resolve_device(device + ":0")
+    k, D = KMER_K, DIST_SHARDS
+    t0 = time.time()
+    codes = _concat_codes(seqs)
+    words, bad, chunk = kmer_rows(codes, k, D)
+    host_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats(card)
+    step = make_distributed_kmer_step([card] * D, k, chunk)
+    shards, step_s = card_timed(lambda: step(words, bad))
+    step_peak = torch.cuda.max_memory_allocated(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    counter, counter_s = card_timed(lambda: KmerCounter.from_sequences(seqs, k, device=card))
+    counter_peak = torch.cuda.max_memory_allocated(card)
+    Tp, B = kmer_layout(k, D)
+    n_bins, equal = 4**k, True
+    for d, shard in enumerate(shards):
+        lo, hi = d * B, min((d + 1) * B, n_bins)
+        equal &= shard.shape[0] == B and torch.equal(shard[: hi - lo], counter.dense[lo:hi])
+        if (d + 1) * B > n_bins + 1:
+            equal &= not bool(shard[n_bins + 1 - lo :].any())
+    windows = int(sum(int(s.sum(dtype=torch.int64)) for s in shards))
+    print(
+        f"phase 6d distributed k-mer table (k={k}, {len(seqs)} reads, {len(codes)} codes, "
+        f"{D} shards of {card}, {B} bins a shard): host split and pack {host_s:.3f} s, step "
+        f"{step_s:.3f} s (peak {step_peak} bytes), KmerCounter on the card {counter_s:.3f} s "
+        f"(peak {counter_peak} bytes); {windows} windows; equal to the counter: {equal}"
+    )
+    if not equal:
+        fail("phase 6d: the bin-sharded k-mer table differs from KmerCounter's")
+    del shards, counter
+    torch.cuda.empty_cache()
+    return {"k": k, "shards": D, "codes": len(codes), "host_seconds": host_s,
+            "step_seconds": step_s, "step_peak_bytes": step_peak,
+            "counter_seconds": counter_s, "counter_peak_bytes": counter_peak}
+
+
+def run_two_processes(initial, seqs, device):
+    """Phase 6e: two processes (`parallel.multiproc`, new interpreters) on
+    the one card with backend gloo, four shards each: the ("host", "data",
+    "table") = (2, 2, 2) count step on phase 4's initial calls with "host"
+    on the process boundary, and the k-mer step at k = KMER_K on `seqs`
+    with its bins over all eight shards (each process checks its range
+    against KmerCounter on the card). Both are held to the same steps in
+    this process: the count tables equal, each bin range's digest equal.
+    Prints the wall, each process's step seconds and the bytes that
+    crossed the process boundary. A worker that hangs past the timeout is
+    killed and its stderr printed."""
+    import numpy as np
+    import torch
+
+    from amira_tpu_torch import resolve_device
+    from amira_tpu_torch.ops.kmer import _concat_codes
+    from amira_tpu_torch.parallel import multiproc
+    from amira_tpu_torch.parallel.distgraph import (
+        distributed_node_counts_3d, kmer_layout, kmer_rows, make_distributed_kmer_step,
+    )
+    from amira_tpu_torch.parallel.mesh import Mesh
+    from amira_tpu_torch.vocab import GeneVocab, pack_reads
+
+    card = resolve_device(device + ":0")
+    torch.cuda.empty_cache()  # the workers share the card with this process
+    d = os.path.join(WORK, "multiproc")
+    os.makedirs(d, exist_ok=True)
+    reads = initial[0]
+    tokens, lengths = pack_reads(GeneVocab().encode_reads_batch(list(reads.values())))
+    tokens_file, seqs_file = os.path.join(d, "tokens.npz"), os.path.join(d, "seqs.txt")
+    np.savez(tokens_file, tokens=tokens, lengths=lengths)
+    with open(seqs_file, "w") as f:
+        f.write("\n".join(seqs) + "\n")
+    t0 = time.time()
+    results = multiproc.run_workers(
+        os.path.join(d, "out"), "gloo", [str(card)] * 2, tokens_file, seqs_file, timeout=600
+    )
+    wall = time.time() - t0
+    mesh = Mesh(np.array([card] * 8, dtype=object).reshape(2, 2, 2), ("host", "data", "table"))
+    keys, counts, total = distributed_node_counts_3d(tokens, lengths, 3, mesh)
+    words, bad, chunk = kmer_rows(_concat_codes(seqs), KMER_K, 8)
+    one = make_distributed_kmer_step([card] * 8, KMER_K, chunk)(words, bad)
+    B = kmer_layout(KMER_K, 8)[1]
+    # the default capacity holds every gene-mer: the tables are phase 6b's nodes
+    equal = len(keys) == len(initial[2][0]) and total == int(np.maximum(lengths - 2, 0).sum())
+    for r in results:
+        with np.load(r["counts_file"]) as z:
+            equal &= np.array_equal(z["keys"], keys) and np.array_equal(z["counts"], counts)
+        equal &= r["total"] == total and r["kmer_matches_counter"]
+        for (lo, _hi), digest in zip(r["kmer_bins"], r["kmer_digests"]):
+            equal &= digest == multiproc.bins_digest(one[lo // B], lo)
+    del one
+    torch.cuda.empty_cache()
+    crossed = sum(r["count_bytes_sent"] + r["kmer_bytes_sent"] for r in results)
+    print(
+        f"phase 6e two processes (gloo, 4 shards of {card} each; count step on {len(reads)} "
+        f"reads, {len(keys)} keys, total {total}; k-mer step k={KMER_K} on {len(seqs)} reads): "
+        f"wall {wall:.1f} s; count step s by rank {[round(r['count_seconds'], 3) for r in results]}, "
+        f"k-mer step s {[round(r['kmer_seconds'], 3) for r in results]}; bytes across the "
+        f"process boundary {crossed}; equal to one process: {equal}"
+    )
+    if not equal:
+        fail("phase 6e: the two-process steps differ from the same steps in one process")
+    return {"wall_seconds": wall, "bytes_crossed": crossed, "keys": len(keys), "total": total,
+            "results": results}
+
+
+def run_graft_entry(initial, device):
+    """Phase 6f: `graft_entry.entry()` on the card, `dryrun_multichip` at
+    2, 4 and 8 shards (one card: shards of cuda:0), and `scaling_report`
+    over the visible devices on phase 4's initial calls; prints its rows."""
+    from amira_tpu_torch import graft_entry
+    from amira_tpu_torch.parallel.distgraph import scaling_report
+    from amira_tpu_torch.vocab import GeneVocab, pack_reads
+
+    fn, args = graft_entry.entry()
+    out, entry_s = card_timed(lambda: fn(*args))
+    print(f"phase 6f entry(): local_genemer_tables on {args[0].device} in {entry_s:.3f} s, "
+          f"{int((out[0] != 0).sum())} nodes, {int((out[2] != 0).sum())} edge keys")
+    dry = {n: graft_entry.dryrun_multichip(n) for n in (2, 4, 8)}
+    tokens, lengths = pack_reads(GeneVocab().encode_reads_batch(list(initial[0].values())))
+    rows = scaling_report(tokens, lengths, k=3)
+    for row in rows:
+        print(f"phase 6f scaling_report: {json.dumps(row)}")
+    return {"entry_seconds": entry_s, "dryrun": dry, "scaling": rows}
 
 
 def main():
@@ -1489,8 +1690,18 @@ def main():
     lap("phase 5d")
     batch_runs = run_batch_phase(files, scale_out, device)
     lap("phase 6a")
-    dist = run_dist_build(files, device)
+    dist, initial = run_dist_build(files, device)
     lap("phase 6b")
+    table_meshes = run_table_meshes(initial, device)
+    lap("phase 6c")
+    all_seqs = read_sequences(files)
+    dist_kmer = run_dist_kmer(all_seqs, device)
+    lap("phase 6d")
+    two_procs = run_two_processes(initial, all_seqs[:SAM_READS], device)
+    del all_seqs
+    lap("phase 6e")
+    graft = run_graft_entry(initial, device)
+    lap("phase 6f")
 
     kernels = []
     for name, replaces in (
@@ -1521,7 +1732,9 @@ def main():
         json.dump(
             {"card": card, "kernels": kernels, "timed": list(timed.values()), "sweep": sweep,
              "main_path": summary, "sam_route": sam, "assemble_paths": asm, "modes": modes,
-             "batch": batch_runs, "dist_build": dist, "clock": clock},
+             "batch": batch_runs, "dist_build": dist, "table_meshes": table_meshes,
+             "dist_kmer": dist_kmer, "two_processes": two_procs, "graft_entry": graft,
+             "clock": clock},
             f, indent=1,
         )
     print(card)

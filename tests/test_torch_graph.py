@@ -5,6 +5,12 @@ tests/test_graph_cache.py), for cold builds and for mutated rebuilds through
 a shared build cache, at k = 3, 5 and 7. One case forces every cache miss
 through the port's torch `pack_flat_windows` instead of the NumPy mirror.
 
+A cold build without a cache is held to both JAX builds as a caller makes
+them, with fresh vocabularies: the JAX uncached build numbers genes in read
+order, short reads included, and so must the port's (one read set puts
+genes on short reads before any long read has them). Without a cache the
+port's constructor builds on the card unless it is given a device.
+
 Tolerance: zero; every field is compared exactly.
 """
 
@@ -60,6 +66,25 @@ def _random_reads(seed, n_reads=120, n_genes=30):
     return calls, positions
 
 
+def _short_first_reads(seed, n_reads=100, n_genes=24):
+    """Reads where short ones (fewer genes than k = 7, often than 3) come
+    first and carry genes that long reads only have later: the gene ids of
+    a build that interns short reads differ from one that skips them."""
+    rng = np.random.RandomState(seed)
+    calls, positions = {}, {}
+    for r in range(n_reads):
+        if r < n_reads // 4:
+            L = rng.randint(1, 7)
+            pool = range(n_genes // 2, n_genes)  # genes the long reads reach last
+        else:
+            L = rng.randint(7, 14)
+            pool = range(n_genes)
+        genes = [("+" if rng.rand() < 0.7 else "-") + f"s{rng.choice(pool)}" for _ in range(L)]
+        calls[f"q{r}"] = genes
+        positions[f"q{r}"] = [[i * 100, i * 100 + 99] for i in range(L)]
+    return calls, positions
+
+
 def _isolate_reads(tmp_path, seed):
     import json
 
@@ -87,29 +112,62 @@ def _mutate(calls, positions, seed):
 
 
 @pytest.mark.parametrize("k", [3, 5, 7])
-@pytest.mark.parametrize("source", ["random", "isolate"])
+@pytest.mark.parametrize("source", ["random", "isolate", "short_first"])
 @pytest.mark.parametrize("reference_build", ["cached", "uncached"])
 def test_cold_build_identical(k, source, reference_build, tmp_path):
-    """A port graph built with cache=None against the JAX package's build
-    through a cache (the pipeline's path) and its uncached device build.
-    The uncached build tokenizes short reads (< k genes) too, so a gene
-    first seen on a short read gets another id, and every hash changes;
-    for that comparison both vocabularies are seeded in read order first."""
+    """A port graph built as a caller builds it, against the JAX package's
+    build through a cache (the pipeline's path) with the port's build
+    through a cache, and against its uncached device build with the port's
+    build without one. Fresh vocabularies on both sides: the uncached
+    builds intern every read's genes in read order, short reads included,
+    the cached ones skip short reads."""
     if source == "random":
         calls, positions = _random_reads(k)
+    elif source == "short_first":
+        calls, positions = _short_first_reads(k)
     else:
         calls, positions = _isolate_reads(tmp_path, k)
-    jv, pv = JaxVocab(), PortVocab()
     if reference_build == "uncached":
-        jv.encode_reads_batch(list(calls.values()))
-        pv.encode_reads_batch(list(calls.values()))
-        ref = JaxGraph(calls, k, positions, vocab=jv)
+        ref = JaxGraph(calls, k, positions, vocab=JaxVocab())
+        got = port_graph.GeneMerGraph(calls, k, positions, vocab=PortVocab(), device="cpu")
     else:
-        ref = JaxGraph(calls, k, positions, vocab=jv, cache=JaxCache())
-    got = port_graph.GeneMerGraph(calls, k, positions, vocab=pv)
+        ref = JaxGraph(calls, k, positions, vocab=JaxVocab(), cache=JaxCache())
+        got = port_graph.GeneMerGraph(
+            calls, k, positions, vocab=PortVocab(), cache=PortCache("cpu")
+        )
     assert got.get_total_number_of_nodes() == len(ref.get_nodes())
     assert got.get_total_number_of_edges() == len(ref.get_edges())
     assert_graphs_identical(ref, got)
+    if source == "short_first" and k > 3:
+        # where short reads introduce genes, the two JAX builds number them
+        # differently, so this case tells them apart
+        other = (
+            JaxGraph(calls, k, positions, vocab=JaxVocab(), cache=JaxCache())
+            if reference_build == "uncached"
+            else JaxGraph(calls, k, positions, vocab=JaxVocab())
+        )
+        assert list(other.get_nodes()) != list(ref.get_nodes())
+
+
+def test_uncached_build_asks_for_the_card(monkeypatch):
+    """F6: without a cache and without a device the constructor resolves
+    "cuda", which raises on a machine without CUDA; a named device is used."""
+    import torch
+
+    calls, positions = _random_reads(3, n_reads=10)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        port_graph.GeneMerGraph(calls, 3, positions)
+    asked = []
+    real = port_graph.GraphBuildCache
+
+    def recording(device):
+        asked.append(device)
+        return real(device)
+
+    monkeypatch.setattr(port_graph, "GraphBuildCache", recording)
+    port_graph.GeneMerGraph(calls, 3, positions, device="cpu")
+    assert asked == [torch.device("cpu")]
 
 
 @pytest.mark.parametrize(

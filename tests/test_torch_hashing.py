@@ -104,3 +104,25 @@ def test_pack_flat_windows_bit_identical(k):
         np.testing.assert_array_equal(d[o : o + W].numpy(), wd)
         o += len(tok)
 
+
+
+@pytest.mark.parametrize("k", [1, 3, 7])
+def test_combine_hash_seq_bit_identical(k):
+    toks, _ = _fuzz_tokens(200 + k, R=32, L=k)
+    seq = np.asarray(jax_hashing.gene_hash(toks))  # (32, k) signed, |h| up to 2^63
+    ref = np.asarray(jax_hashing._combine_hash_seq(seq))
+    got = hashing._combine_hash_seq(torch.from_numpy(seq))
+    np.testing.assert_array_equal(_u64(got), ref)
+
+
+def test_node_hash_from_signed_seq_equals_jax():
+    """JAX's own check (tests/test_graph_core.py:25-31) and its values: a
+    gene-mer and its reverse complement share a hash, a changed strand
+    does not, on tokens whose gene hash is at or above 2^62."""
+    big = _high_hash_ids(4).astype(np.int32)
+    seqs = [np.array([1, -2, 3], np.int32), np.array([-3, 2, -1], np.int32),
+            np.array([1, -2, -3], np.int32), np.array([big[0], -big[1], big[2], 5, -big[3]])]
+    got = [hashing.node_hash_from_signed_seq(s) for s in seqs]
+    assert got == [jax_hashing.node_hash_from_signed_seq(s) for s in seqs]
+    assert got[0] == got[1] != got[2]
+    assert all(0 <= h < 1 << 64 for h in got)

@@ -58,8 +58,11 @@ def test_every_module_imports_without_jax_or_reference_package():
     )
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
-    assert len(names) >= 29
-    assert {"amira_tpu_torch.promoters", "amira_tpu_torch.assembly"} <= set(names)
+    assert len(names) >= 32
+    assert {
+        "amira_tpu_torch.promoters", "amira_tpu_torch.assembly", "amira_tpu_torch.graft_entry",
+        "amira_tpu_torch.parallel.mesh", "amira_tpu_torch.parallel.multiproc",
+    } <= set(names)
 
 
 def test_no_source_file_imports_jax_or_reference_package():
