@@ -24,8 +24,9 @@ What moved and how:
   file) and streams larger ones. They are copied rather than imported because importing any
   `amira_tpu.*` module runs `amira_tpu/__init__.py`, which imports JAX and
   switches on 64-bit mode for the whole process.
-* Device code is torch: gene-mer window hashing (`ops/hashing`,
-  `ops/graph_tables`), the dense k-mer table (`ops/kmer`), and the banded
+* Device code is torch: gene-mer window hashing and the tables of a
+  graph build without a cache (`ops/hashing`, `ops/graph_tables`), the
+  sorted and dense k-mer counters (`ops/kmer`), and the banded
   Smith-Waterman aligner, whose DP and traceback are hand-written CUDA
   kernels (`csrc/sw_batch.cu`, bound by `ops/sw_batch`).
 * The device is always explicit: `--device` (cuda, cuda:N or cpu) on the

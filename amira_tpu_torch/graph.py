@@ -1,16 +1,20 @@
 """The gene-space de Bruijn graph ("gene-mer graph"), tensor-first.
 
-Port of `amira_tpu/graph.py`. Every build goes through the incremental
-`GraphBuildCache` (`_build_cached`): a graph constructed with `cache=None`
-gets a fresh cache on `device` (the card unless the caller names another),
-after every read's genes, short reads included, are interned in read order
-as the JAX package's uncached build interns them; so its gene ids, and with
-them its node hashes, are that build's. Window hashing for reads that miss the
-cache runs through `ops/graph_tables.pack_flat_windows` on the cache's
-device when the batch is large, or through the NumPy mirror
-(`ops/host_tables`) when small; node/edge/coverage tables are aggregated
-with vectorized NumPy group-bys, and the Node/Edge object graph
-materializes lazily on first access.
+Port of `amira_tpu/graph.py`, with its two builds:
+
+* Without a cache (`_build`, the JAX package's uncached device build):
+  every read's genes are interned in read order, short reads included; the
+  kept reads' window occurrences and edge records are grouped into node,
+  (node, read) pair and edge tables on `device` (the card unless the
+  caller names another; `ops/graph_tables`), and the Node/Edge object
+  graph is built from them at once. Such a graph is eager.
+* Through the incremental `GraphBuildCache` (`_build_cached`, the
+  pipeline's path): window hashing for reads that miss the cache runs
+  through `ops/graph_tables.pack_flat_windows` on the cache's device when
+  the batch is large, or through the NumPy mirror (`ops/host_tables`) when
+  small; node/edge/coverage tables are aggregated with vectorized NumPy
+  group-bys, and the Node/Edge object graph materializes lazily on first
+  access.
 
 Mutation (node/edge removal, filtering) and the irregular traversals operate
 on compact host-side tables.
@@ -20,7 +24,6 @@ from __future__ import annotations
 
 import numpy as np
 
-from .graph_cache import GraphBuildCache
 from .vocab import GeneVocab, reverse_tokens
 
 
@@ -140,14 +143,6 @@ class GeneMerGraph:
         self._minNodeCoverage = 1
         self._minEdgeCoverage = 1
         self.vocab = vocab if vocab is not None else GeneVocab()
-        if cache is None:
-            # a one-off build gets its own cache; the JAX package's uncached
-            # build (amira_tpu/graph.py:_build) interns every read's genes
-            # before it sets short reads aside, so gene ids follow read order
-            from . import resolve_device
-
-            cache = GraphBuildCache(resolve_device("cuda" if device is None else device))
-            self.vocab.encode_reads_batch(list(self._reads.values()))
         self._cache = cache
         self._nodes_d: dict[int, Node] = {}
         self._edges_d: dict[int, Edge] = {}
@@ -161,7 +156,12 @@ class GeneMerGraph:
         # first dict access. The tensor cleaning path (amira_tpu/clean.py)
         # works off the tables and never pays for materialization.
         self._lazy: dict | None = None
-        self._build_cached()
+        if cache is not None:
+            self._build_cached()
+        else:
+            from . import resolve_device
+
+            self._build(resolve_device("cuda" if device is None else device))
 
     # ---------------------------------------------------- lazy materialization
 
@@ -201,10 +201,129 @@ class GeneMerGraph:
 
     def lazy_tables(self) -> dict | None:
         """The flat aggregation tables of a lazy cached build (see
-        _build_cached), or None once materialized."""
+        _build_cached), or None once materialized and for builds without a
+        cache."""
         return self._lazy
 
     # ------------------------------------------------------------------ build
+
+    def _build(self, device):
+        """The build without a cache (amira_tpu/graph.py:_build): every
+        read's genes interned in read order, short reads set aside, the
+        kept reads' occurrence and edge streams grouped into compact tables
+        on `device`, and the Node/Edge objects and per-read lists built
+        from those tables on the host, in the JAX build's orders."""
+        import torch
+
+        from .ops.graph_tables import (
+            assemble_edge_tables,
+            assemble_node_tables,
+            flat_occurrences,
+        )
+
+        k = self._kmerSize
+        read_ids = list(self._reads.keys())
+        if not read_ids:
+            return
+        tok_list = self.vocab.encode_reads_batch([self._reads[r] for r in read_ids])
+        lengths = np.fromiter((len(t) for t in tok_list), np.int64, len(tok_list))
+
+        # short reads (< k genes) contribute nothing to the graph
+        for i, r in enumerate(read_ids):
+            if lengths[i] < k:
+                self._shortReads[r] = self._reads[r]
+
+        keep = lengths >= k
+        if not keep.any():
+            return
+        kept_ids = [r for r, m in zip(read_ids, keep) if m]
+        kept_tok = [t for t, m in zip(tok_list, keep) if m]
+        kept_len = lengths[keep]
+
+        # ---- one flat token stream; the tables are grouped on the device
+        # and come back compact
+        flat = torch.from_numpy(np.concatenate(kept_tok)).to(device)
+        lens = torch.from_numpy(kept_len).to(device)
+        occ_hash, occ_dir, occ_read, occ_key, ekeys, eokey = flat_occurrences(flat, lens, k)
+        node_tables = assemble_node_tables(occ_hash, occ_read, occ_key)
+        edge_tables = assemble_edge_tables(ekeys, eokey)
+        node_hashes, node_keys, node_covs, prun, pread = (
+            t.cpu().numpy() for t in node_tables
+        )
+        ekey_vals, ecov_vals, eokey_vals = (t.cpu().numpy() for t in edge_tables)
+        # int64 bit patterns -> the uint64 hashes of the host tables
+        node_hashes = node_hashes.view(np.uint64)
+        ekey_vals = ekey_vals.view(np.uint64)
+
+        # ---- per-read window hash/direction lists
+        wh_all = occ_hash.cpu().numpy().view(np.uint64)
+        wd_all = occ_dir.cpu().numpy()
+        offs = np.zeros(len(kept_ids) + 1, np.int64)
+        np.cumsum(kept_len - (k - 1), out=offs[1:])
+        win_hash = [wh_all[offs[s] : offs[s + 1]] for s in range(len(kept_ids))]
+        win_dir = [wd_all[offs[s] : offs[s + 1]] for s in range(len(kept_ids))]
+        has_pos = self._genePositions is not None
+        for s, rid in enumerate(kept_ids):
+            wh = win_hash[s]
+            self._readNodes_d[rid] = wh.tolist()
+            self._readNodeDirections_d[rid] = win_dir[s].tolist()
+            if has_pos:
+                pos = self._genePositions[rid]
+                self._readNodePositions_d[rid] = [
+                    (pos[j2][0], pos[j2 + k - 1][1]) for j2 in range(len(wh))
+                ]
+            else:
+                self._readNodePositions_d[rid] = [None] * len(wh)
+
+        # ---- nodes: canonical tokens from the first occurrence
+        n_nodes = len(node_hashes)
+        first_read = node_keys >> 22
+        first_w = (node_keys >> 1) & ((1 << 21) - 1)
+        nodes_in_run_order = []
+        for gi in range(n_nodes):
+            ri, wi = int(first_read[gi]), int(first_w[gi])
+            wtok = kept_tok[ri][wi : wi + k]
+            canon = wtok if int(win_dir[ri][wi]) == 1 else reverse_tokens(wtok)
+            node = Node(int(node_hashes[gi]), np.ascontiguousarray(canon))
+            node.coverage = int(node_covs[gi])
+            nodes_in_run_order.append(node)
+        # insertion order = first-occurrence order (reference read-major)
+        for gi in np.argsort(node_keys, kind="stable"):
+            node = nodes_in_run_order[gi]
+            self._nodes_d[node.hash] = node
+
+        # ---- reads per node (pair tables, already (node, read) sorted)
+        read_objs = np.array(kept_ids, dtype=object)[pread]
+        bounds = np.searchsorted(prun, np.arange(n_nodes + 1))
+        for gi in range(n_nodes):
+            node = nodes_in_run_order[gi]
+            rids = read_objs[bounds[gi] : bounds[gi + 1]].tolist()
+            node.reads = rids
+            node._read_set = set(rids)
+
+        # ---- edges (endpoints rebuilt from the first record's order key:
+        # read index, window, fwd/rev slot), in first-record order
+        e_read = eokey_vals >> 22
+        e_w = (eokey_vals >> 1) & ((1 << 21) - 1)
+        e_rev = (eokey_vals & 1).astype(bool)
+        for gi in np.argsort(eokey_vals, kind="stable"):
+            ri, wi = int(e_read[gi]), int(e_w[gi])
+            wh, wd = win_hash[ri], win_dir[ri]
+            src_h, tgt_h = int(wh[wi]), int(wh[wi + 1])
+            src_d, tgt_d = int(wd[wi]), int(wd[wi + 1])
+            if e_rev[gi]:
+                src_h, tgt_h = tgt_h, src_h
+                src_d, tgt_d = -tgt_d, -src_d
+            key = int(ekey_vals[gi])
+            edge = Edge(key, src_h, tgt_h, src_d, tgt_d)
+            edge.coverage = int(ecov_vals[gi])
+            self._edges_d[key] = edge
+            src_node = self._nodes_d[src_h]
+            lst = src_node.fwd_edges if src_d == 1 else src_node.bwd_edges
+            if key not in lst:
+                lst.append(key)
+
+        self.assign_component_ids()
 
     def _build_cached(self):
         """Build via the incremental cache (amira_tpu/graph_cache.py).
@@ -214,8 +333,7 @@ class GeneMerGraph:
         re-aggregated from cached per-read occurrence vectors with vectorized
         host group-bys. Produces a graph identical (including dict insertion
         order and per-node read/edge-list order) to the JAX package's cached
-        build with the same cache history; a fresh cache after the
-        constructor's read-order interning gives its uncached build."""
+        build with the same cache history."""
         k = self._kmerSize
         cache = self._cache
         cache.bind_vocab(self.vocab)

@@ -2,18 +2,25 @@
 
 Port of `amira_tpu/ops/kmer.py`, the replacement for the reference's
 Jellyfish subprocesses (result_utils.py:1050-1141: `jellyfish count -m 15
--C`, `histo`, `query`). The device alone picks the counter:
+-C`, `histo`, `query`). The device and the size of the read set pick the
+counter (`counter_for`):
 
-* cuda: a dense (4^k + 1)-bin int32 count table in device memory (4 GiB at
-  k = 15), filled by `index_add_` of the canonical window codes that torch
-  computes from the native 2-bit packer's chunks; histogram, cutoff filter
-  and per-path median queries run on the table in torch as well.
-* cpu: the host NumPy counter, carried over unchanged (chunked canonical
-  codes, per-chunk unique tables merged by sorted run-length sum, or a
-  dense bincount for gigabase inputs).
+* sorted, on cuda below 2^24 codes: every window's canonical code,
+  computed in torch from the native 2-bit packer's one buffer, is sorted on
+  the device; run starts and lengths give the (distinct k-mer, count)
+  table, and only that table comes back to the host (uint32 k-mers, int64
+  counts, the dtypes of JAX's sorted route).
+* dense, on cuda from 2^24 codes: a (4^k + 1)-bin int32 count table in
+  device memory (4 GiB at k = 15), filled by `index_add_` of the window
+  codes of the packer's chunks; histogram, cutoff filter and per-path
+  median queries run on the table in torch as well.
+* host, on cpu at every size: the host NumPy counter, carried over
+  unchanged (chunked canonical codes, per-chunk unique tables merged by
+  sorted run-length sum, or a dense bincount for gigabase inputs).
 
-Both give identical counts, histograms and medians (the dense path also
-runs on CPU tensors, which the tests use). The copy-number math
+All three give identical counts, histograms and medians (the sorted and
+dense paths also run on CPU tensors, which the tests use); the sorted and
+host tables answer histograms and queries on the host. The copy-number math
 (Poisson-mixture error cutoff, smoothed histogram peak) is ported from
 result_utils.py:975-1022.
 """
@@ -108,6 +115,23 @@ _HOST_COUNT_CHUNK = 1 << 27
 # pays for itself vs per-chunk sorting
 _HOST_BINCOUNT_MIN = 1 << 28
 
+# below this many codes cuda sorts (above it the dense table): the JAX
+# package's edge (amira_tpu/ops/kmer.py:341-342), kept for parity; where
+# the sorted and dense counters cross over on the card is not measured
+_SORTED_CUDA_LIMIT = 1 << 24
+
+# sorted tables made, by device type (a run can show which counter served it)
+SORTED_TABLES = {"cpu": 0, "cuda": 0}
+
+
+def counter_for(device_type: str, n_codes: int) -> str:
+    """The counter `KmerCounter.from_sequences` takes for a read set of
+    `n_codes` codes (bases plus one separator a read) on a device of
+    `device_type`: "sorted" or "dense" on cuda, "host" on cpu."""
+    if device_type == "cuda":
+        return "sorted" if n_codes < _SORTED_CUDA_LIMIT else "dense"
+    return "host"
+
 
 # ---------------------------------------------------- dense table counter
 #
@@ -152,6 +176,26 @@ def _to_device_words(words_np: np.ndarray, bad_np: np.ndarray, device):
     words = np.array(words_np, copy=not words_np.flags.writeable).view(np.int32)
     bad = np.array(bad_np, copy=not bad_np.flags.writeable)
     return torch.from_numpy(words).to(device), torch.from_numpy(bad).to(device)
+
+
+def _pack_one_buffer(seqs: list, k: int):
+    """All of `seqs` as one 2-bit buffer (uint32 words, invalid bitmask) of
+    at least 2^12 codes, one invalid code after each read, the tail padded
+    invalid: the native packer's chunk layout, or the same codes packed
+    from the joined stream when the native helper is absent."""
+    from ..native import load as _load_native
+
+    n_codes = sum(len(s) for s in seqs) + len(seqs)
+    n_pad = max(1 << 12, (n_codes + 15) // 16 * 16)
+    native = _load_native()
+    if native is not None and hasattr(native, "pack_dna_chunk"):
+        wb, bb, idx, _off = native.pack_dna_chunk(seqs, 0, 0, n_pad, k)
+        if idx != len(seqs):
+            raise RuntimeError(f"pack_dna_chunk packed {idx} of {len(seqs)} reads into one buffer")
+        return np.frombuffer(wb, np.uint32), np.frombuffer(bb, np.uint8)
+    codes = _concat_codes(seqs)
+    codes = np.concatenate([codes, np.full(n_pad - len(codes), _SENTINEL, np.uint8)])
+    return _pack_codes_2bit(codes)
 
 
 def _canonical_window_codes(words, bad_bytes, k: int):
@@ -301,9 +345,35 @@ class KmerCounter:
             start = next_start
 
     @classmethod
+    def _from_seqs_sorted(cls, seqs, k: int, min_count: int, device):
+        """Sorted counter: the canonical code of every window of the one
+        packed buffer (invalid windows -> 4^k, which sorts last), one sort
+        on `device`, then run starts and run lengths; the (distinct k-mer,
+        count) table comes back to the host."""
+        self = cls(k)
+        words, bad = _to_device_words(*_pack_one_buffer(seqs, k), device)
+        SORTED_TABLES[words.device.type] += 1
+        codes = torch.sort(_canonical_window_codes(words, bad, k)).values
+        n = int((codes < 4**k).sum())
+        if n == 0:
+            return self
+        codes = codes[:n]
+        starts = torch.ones(n, dtype=torch.bool, device=codes.device)
+        starts[1:] = codes[1:] != codes[:-1]
+        first = torch.nonzero(starts).flatten()
+        counts = torch.diff(first, append=first.new_tensor([n]))
+        kmers = codes[first].cpu().numpy().astype(np.uint32)
+        counts = counts.cpu().numpy()
+        if min_count > 0:
+            keep = counts >= min_count
+            kmers, counts = kmers[keep], counts[keep]
+        self.kmers, self.counts = kmers, counts
+        return self
+
+    @classmethod
     def from_sequences(cls, seqs, k: int = 15, min_count: int = 0, *, device):
-        """Count table over `seqs`: the dense table on a cuda device, the
-        host counter on the CPU."""
+        """Count table over `seqs` by the counter `counter_for` names for
+        `device` and the read set's size."""
         self = cls(k)
         seqs = list(seqs)
         # the joined sentinel-separated stream is one code per base plus
@@ -311,7 +381,10 @@ class KmerCounter:
         n_codes = sum(len(s) for s in seqs) + len(seqs)
         if n_codes < k:
             return self
-        if torch.device(device).type == "cuda":
+        counter = counter_for(torch.device(device).type, n_codes)
+        if counter == "sorted":
+            return cls._from_seqs_sorted(seqs, k, min_count, device)
+        if counter == "dense":
             return cls._from_seqs_dense(seqs, k, min_count, device)
         codes = _concat_codes(seqs)
         if len(codes) < k:
@@ -477,6 +550,7 @@ def estimate_overall_read_depth(sequences, k: int = 15, *, device):
             v: f for v, f in full_histo.items() if v >= max(cutoff, 1)
         }
     else:
+        # a sorted or host table is on the host already: filtered there
         keep = full.counts >= max(cutoff, 1)
         filtered.kmers, filtered.counts = full.kmers[keep], full.counts[keep]
         filtered_histo = filtered.histo()
@@ -492,26 +566,9 @@ def estimate_depth_for_reads(counter: KmerCounter, sequences) -> float:
         n_codes = sum(len(s) for s in sequences) + len(sequences)
         if n_codes < counter.k:
             return 0.0
-        n_pad = max(1 << 12, (n_codes + 15) // 16 * 16)
-        words = bad = None
-        from ..native import load as _load_native
-
-        native = _load_native()
-        if native is not None and hasattr(native, "pack_dna_chunk"):
-            wb, bb, idx, _off = native.pack_dna_chunk(
-                sequences, 0, 0, n_pad, counter.k
-            )
-            if idx == len(sequences):  # all reads fit in one buffer
-                words = np.frombuffer(wb, np.uint32)
-                bad = np.frombuffer(bb, np.uint8)
-        if words is None:
-            codes = _concat_codes(sequences)
-            if n_pad != len(codes):
-                codes = np.concatenate(
-                    [codes, np.full(n_pad - len(codes), _SENTINEL, np.uint8)]
-                )
-            words, bad = _pack_codes_2bit(codes)
-        words, bad = _to_device_words(words, bad, counter.dense.device)
+        words, bad = _to_device_words(
+            *_pack_one_buffer(sequences, counter.k), counter.dense.device
+        )
         med2, nnz = _dense_query_median2(counter.dense, words, bad, counter.k)
         if nnz == 0:
             return 0.0

@@ -104,8 +104,9 @@ def bins_digest(table, lo: int, chunk: int = 1 << 24):
 
 def _counter_range(seqs, k: int, device, lo: int, hi: int):
     """Bins [lo, hi) of the single-process counter's table (`KmerCounter`:
-    dense on a card, the host counter on the CPU), bin 4^k (invalid
-    windows) and the padding past it zero."""
+    the dense table, or a sorted or host (k-mer, count) table scattered
+    into `device` memory), bin 4^k (invalid windows) and the padding past
+    it zero."""
     from ..ops.kmer import KmerCounter
 
     counter = KmerCounter.from_sequences(seqs, k, device=device)
@@ -117,8 +118,8 @@ def _counter_range(seqs, k: int, device, lo: int, hi: int):
             out[: top - lo] = counter.dense[lo:top]
         return out
     sel = (counter.kmers >= lo) & (counter.kmers < top)
-    idx = torch.from_numpy(counter.kmers[sel].astype(np.int64) - lo)
-    out[idx] = torch.from_numpy(counter.counts[sel].astype(np.int32))
+    idx = torch.from_numpy(counter.kmers[sel].astype(np.int64) - lo).to(out.device)
+    out[idx] = torch.from_numpy(counter.counts[sel].astype(np.int32)).to(out.device)
     return out
 
 

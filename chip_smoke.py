@@ -84,6 +84,21 @@ Run from the root of a checkout. Phases, each printing its own lines:
       and the bytes that crossed the process boundary;
    f. `graft_entry.entry()` on the card, `dryrun_multichip` at 2, 4 and 8
       shards of it, and `scaling_report`'s rows over the visible devices.
+7. The JAX package's last two device paths, on the card:
+   a. the sorted k-mer counter: the first reads of phase 4's isolate at
+      about 2^16, 2^20 and just under 2^24 codes, counted at k = 15 by
+      `KmerCounter.from_sequences` (which must take the sorted counter)
+      and held to the dense table of the same reads: k-mers, counts,
+      histogram, cutoff, the depth of `estimate_overall_read_depth` and
+      `estimate_depth_for_reads` on each AMR path's reads. Prints n_codes,
+      the median of 3 timed runs of each counter and their peak device
+      memory. Phase 3's golden run must have counted on the sorted
+      counter, phase 4 on the dense table;
+   b. the graph build without a cache (eager, its tables grouped on the
+      card): phase 4's initial calls at k = 3 (first and second call),
+      and the first UNCACHED_READS reads at k = 5 and 7, each equal in
+      full to the same build on the CPU; `build_and_correct_graph` without
+      a cache on phase 3's isolate gives the CPU's corrected calls.
 
 The next-to-last lines are the card line and one JSON object describing
 each kernel; the last line is {"ok": true, "device": {...}}. Any failed
@@ -145,7 +160,12 @@ BATCH_ISOLATES = 4
 BATCH_WORKERS = (1, 4)
 # phases 6b and 6d: shards of the distributed build and k-mer table on the card
 DIST_SHARDS = 4
-KMER_K = 15  # the copy-number estimate's k (phases 6d and 6e; multiproc's)
+KMER_K = 15  # the copy-number estimate's k (phases 6d, 6e, 7a; multiproc's)
+# phase 7a's reads come from the first SORTED_READS of phase 4's isolate
+# (about 2,700 of them fill 2^24 codes); phase 7b builds the first
+# UNCACHED_READS at k = 5 and 7
+SORTED_READS = 4_000
+UNCACHED_READS = 5_000
 
 # Bounds. H100 SXM: HBM3 at 3.35 TB/s (NVIDIA's data sheet); int32 issue of
 # 132 SMs x 64 int32 lanes x 1.98 GHz boost clock (Hopper white paper).
@@ -629,7 +649,10 @@ def run_cli(argv):
 
 
 def check_golden(device):
-    """Phase 3: the committed golden TSV, byte for byte."""
+    """Phase 3: the committed golden TSV, byte for byte. Returns the
+    isolate's files and the k-mer tables its copy-number count made, by
+    counter and device type (phase 7a checks them)."""
+    from amira_tpu_torch.ops import kmer
     from synthetic import make_isolate
 
     d = os.path.join(WORK, "golden")
@@ -638,12 +661,20 @@ def check_golden(device):
         layout=["geneA", "geneB", "amrX", "geneC", "geneD", "amrY", "geneE", "geneF"],
     )
     out = os.path.join(d, "out")
+    for counts in (kmer.SORTED_TABLES, kmer.DENSE_TABLES):
+        for key in counts:
+            counts[key] = 0
     t0 = time.time()
     run_cli(cli_args(files, out, device))
     with open(os.path.join(out, "amira_results.tsv")) as f, open(GOLDEN) as g:
         if f.read() != g.read():
             fail("amira_results.tsv of the seed-7 isolate differs from the golden")
-    print(f"phase 3 golden: amira_results.tsv equals the committed golden ({time.time() - t0:.1f} s)")
+    tables = {"sorted": dict(kmer.SORTED_TABLES), "dense": dict(kmer.DENSE_TABLES)}
+    print(
+        f"phase 3 golden: amira_results.tsv equals the committed golden ({time.time() - t0:.1f} s); "
+        f"k-mer tables {tables}"
+    )
+    return files, tables
 
 
 def scale_layout():
@@ -748,7 +779,7 @@ def run_main_path(files, device):
     d = os.path.join(WORK, "scale")
     n_reads = files["n_reads"]
     out = os.path.join(d, "out")
-    for counts in (sw_batch.LAUNCHES, graph_tables.DEVICE_RUNS, kmer.DENSE_TABLES):
+    for counts in (sw_batch.LAUNCHES, graph_tables.DEVICE_RUNS, kmer.DENSE_TABLES, kmer.SORTED_TABLES):
         for key in counts:
             counts[key] = 0
     sw_batch.DP_SHAPES.clear()
@@ -768,7 +799,8 @@ def run_main_path(files, device):
     print(
         f"phase 4 main path: {wall_s:.1f} s wall, peak device memory "
         f"{peak} bytes ({peak / 2**30:.2f} GiB), launches {launches}, "
-        f"window-hash runs {graph_tables.DEVICE_RUNS}, dense tables {kmer.DENSE_TABLES}"
+        f"window-hash runs {graph_tables.DEVICE_RUNS}, dense tables {kmer.DENSE_TABLES}, "
+        f"sorted tables {kmer.SORTED_TABLES}"
     )
     print(f"phase 4 sw_dp launches by shape (B, Lq, W, launches): {dp_shapes}")
     rows = check_scale_rows(out, "phase 4")
@@ -788,6 +820,7 @@ def run_main_path(files, device):
         "dp_shapes": dp_shapes,
         "window_hash_runs": dict(graph_tables.DEVICE_RUNS),
         "dense_tables": dict(kmer.DENSE_TABLES),
+        "sorted_tables": dict(kmer.SORTED_TABLES),
         "phases": phases,
         "rows": rows,
     }, out
@@ -1635,6 +1668,233 @@ def run_graft_entry(initial, device):
     return {"entry_seconds": entry_s, "dryrun": dry, "scaling": rows}
 
 
+SORTED_CODES = (1 << 16, 1 << 20, (1 << 24) - 1)  # phase 7a's read-set sizes, at most
+
+
+def median_run(fn, card, reps=3):
+    """fn() once to warm up, then `reps` timed runs, each after the last
+    one's result is freed: (the last result, the median seconds, the peak
+    device memory over the timed runs)."""
+    import statistics
+
+    import torch
+
+    fn()
+    torch.cuda.reset_peak_memory_stats(card)
+    times, out = [], None
+    for _ in range(reps):
+        out = None
+        out, s = card_timed(fn)
+        times.append(s)
+    return out, statistics.median(times), torch.cuda.max_memory_allocated(card)
+
+
+def run_sorted_kmer(seqs, path_reads_dir, golden_tables, main_tables, device):
+    """Phase 7a: the sorted k-mer counter on the card. The first reads of
+    phase 4's isolate, at most SORTED_CODES codes each (the largest just
+    under the 2^24 edge), are counted at k = KMER_K by
+    `KmerCounter.from_sequences` on the card, which must take the sorted
+    counter (SORTED_TABLES grows, DENSE_TABLES does not), and held to the
+    dense table of the same reads on the card: the same k-mers and counts,
+    histogram and cutoff, the same depth from `estimate_overall_read_depth`,
+    and the same `estimate_depth_for_reads` on each AMR path's reads of
+    phase 4. Prints n_codes and, for each counter, the median of 3 timed
+    runs after a warm-up and their peak device memory. Phase 3's golden
+    run must have taken the sorted counter, phase 4 the dense one."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from amira_tpu_torch import resolve_device
+    from amira_tpu_torch.io import parse_fastq
+    from amira_tpu_torch.ops import kmer
+
+    card = resolve_device(device + ":0")
+    k = KMER_K
+    if not (golden_tables["sorted"]["cuda"] > 0 and golden_tables["dense"]["cuda"] == 0):
+        fail(f"phase 7a: phase 3's golden run did not count on the card's sorted counter ({golden_tables})")
+    if not (main_tables["dense"]["cuda"] > 0 and main_tables["sorted"]["cuda"] == 0):
+        fail(f"phase 7a: phase 4 did not count on the card's dense table ({main_tables})")
+    path_seqs = [
+        [r["sequence"] for r in parse_fastq(p).values()]
+        for p in sorted(glob.glob(os.path.join(path_reads_dir, "*.fastq.gz")))
+    ]
+    if not path_seqs:
+        fail("phase 7a: phase 4 wrote no path reads")
+    codes = np.cumsum([len(s) + 1 for s in seqs])
+    dense_of = lambda sub: kmer.KmerCounter._from_seqs_dense(sub, k, 0, card)  # noqa: E731
+    rows = []
+    for limit in SORTED_CODES:
+        n_reads = int(np.searchsorted(codes, limit, side="right"))
+        sub, n_codes = seqs[:n_reads], int(codes[n_reads - 1])
+        for counts in (kmer.SORTED_TABLES, kmer.DENSE_TABLES):
+            for key in counts:
+                counts[key] = 0
+        got = kmer.KmerCounter.from_sequences(sub, k, device=card)
+        took = {"sorted": dict(kmer.SORTED_TABLES), "dense": dict(kmer.DENSE_TABLES)}
+        if took["sorted"][card.type] != 1 or sum(took["dense"].values()) != 0 or got.dense is not None:
+            fail(f"phase 7a: {n_codes} codes did not take the sorted counter on the card ({took})")
+        got, sorted_s, sorted_peak = median_run(
+            lambda: kmer.KmerCounter.from_sequences(sub, k, device=card), card  # noqa: B023
+        )
+        ref, dense_s, dense_peak = median_run(lambda: dense_of(sub), card)  # noqa: B023
+        nz = torch.nonzero(ref.dense[:-1]).flatten()
+        equal = np.array_equal(got.kmers, nz.cpu().numpy().astype(np.uint32)) and np.array_equal(
+            got.counts, ref.dense[nz].cpu().numpy().astype(np.int64)
+        )
+        histo = got.histo()
+        equal &= histo == ref.histo()
+        cutoff = kmer.kmer_cutoff_estimation(histo)
+        equal &= cutoff == kmer.kmer_cutoff_estimation(ref.histo())
+        del ref
+        depth, filtered = kmer.estimate_overall_read_depth(sub, k, device=card)
+        real = kmer.counter_for
+        kmer.counter_for = lambda device_type, n: "dense"  # the dense route, same reads
+        try:
+            ref_depth, ref_filtered = kmer.estimate_overall_read_depth(sub, k, device=card)
+        finally:
+            kmer.counter_for = real
+        if filtered.dense is not None or ref_filtered.dense is None:
+            fail("phase 7a: estimate_overall_read_depth did not take the counters asked for")
+        path_depths = [kmer.estimate_depth_for_reads(filtered, p) for p in path_seqs]
+        ref_path_depths = [kmer.estimate_depth_for_reads(ref_filtered, p) for p in path_seqs]
+        equal &= depth == ref_depth and path_depths == ref_path_depths
+        del ref_filtered
+        torch.cuda.empty_cache()
+        row = {
+            "reads": n_reads, "n_codes": n_codes, "distinct": len(got.kmers), "cutoff": cutoff,
+            "depth": depth, "path_depths": path_depths, "sorted_seconds": sorted_s,
+            "sorted_peak_bytes": sorted_peak, "dense_seconds": dense_s, "dense_peak_bytes": dense_peak,
+            "equal": bool(equal),
+        }
+        rows.append(row)
+        print(
+            f"phase 7a sorted k-mer counter (k={k}, {n_reads} reads, {n_codes} codes, "
+            f"{len(got.kmers)} distinct): sorted {sorted_s:.4f} s (peak {sorted_peak} bytes), "
+            f"dense {dense_s:.4f} s (peak {dense_peak} bytes), median of 3 after a warm-up; "
+            f"cutoff {cutoff}, depth {depth}, path depths {path_depths}; equal to the dense table: {equal}"
+        )
+        if not equal:
+            fail(f"phase 7a: the sorted counter differs from the dense table at {n_codes} codes")
+    return {"k": k, "golden_tables": golden_tables, "main_tables": main_tables, "sizes": rows}
+
+
+def graph_full_state(graph):
+    """graph_state and the rest of what phase 7b holds equal: nodes'
+    canonical tokens, readNodeDirections, readNodePositions, short reads."""
+    nodes, edges, read_nodes = graph_state(graph)
+    return (
+        nodes, edges, read_nodes,
+        [n.tokens.tolist() for n in graph.get_nodes().values()],
+        graph.get_readNodeDirections(), graph.get_readNodePositions(),
+        graph.get_short_read_annotations(),
+    )
+
+
+def golden_cleaning_inputs(files):
+    """What run_pipeline hands build_and_correct_graph for the seed-7
+    isolate of phase 3: gene calls and positions, FASTQ content, genes of
+    interest, per-k mean node coverages and the coverage trough of an
+    initial build on the CPU."""
+    from amira_tpu_torch.graph_utils import (
+        build_graph, estimate_min_path_coverage, get_overall_mean_node_coverages,
+    )
+    from amira_tpu_torch.io import parse_fastq
+    from amira_tpu_torch.preprocess import (
+        load_species_specific_files, process_pandora_json, process_reference_alleles,
+    )
+    from amira_tpu_torch.vocab import GeneVocab
+
+    fasta, _, _, _ = load_species_specific_files(
+        "Escherichia_coli", files["amr_fasta"], files["amr_calls"], files["core_genes"],
+        files["plasmid_genes"],
+    )
+    _, genes_of_interest = process_reference_alleles(fasta, False)
+    reads, goi, positions = process_pandora_json(files["calls"], genes_of_interest, files["positions"])
+    reads = dict(sorted(reads.items()))
+    graph = build_graph(reads, 3, positions, GeneVocab(), device="cpu")
+    try:
+        min_cov = estimate_min_path_coverage(graph.get_all_node_coverages())
+    except (ValueError, IndexError):
+        min_cov = 10
+    return (reads, positions, parse_fastq(files["fastq"]), goi,
+            get_overall_mean_node_coverages(graph), min_cov)
+
+
+def run_uncached_build(initial, golden_files, device):
+    """Phase 7b: the graph build without a cache (`GeneMerGraph._build`,
+    eager, its tables grouped on the device) on the card. Phase 4's initial
+    calls at k = 3, built twice on the card (first and second call timed)
+    and once on the CPU, and the first UNCACHED_READS reads at k = 5 and 7
+    on both: each graph must equal the CPU's in full (graph_full_state).
+    Then `build_and_correct_graph(cache=None)` on phase 3's seed-7 isolate
+    on the card and on the CPU: the corrected calls, positions, chosen k
+    and short reads must be equal."""
+    import copy
+
+    import torch
+
+    from amira_tpu_torch import resolve_device
+    from amira_tpu_torch.graph import GeneMerGraph
+    from amira_tpu_torch.ops import graph_tables
+    from amira_tpu_torch.pipeline import build_and_correct_graph
+    from amira_tpu_torch.vocab import GeneVocab
+
+    card = resolve_device(device + ":0")
+    reads, positions = initial[0], initial[1]
+    rows = []
+    for k, n in ((3, None), (5, UNCACHED_READS), (7, UNCACHED_READS)):
+        part = reads if n is None else dict(list(reads.items())[:n])
+        build = lambda dev: GeneMerGraph(part, k, positions, vocab=GeneVocab(), device=dev)  # noqa: E731, B023
+        runs = graph_tables.DEVICE_RUNS[card.type]
+        on_card, first_s = card_timed(lambda: build(card))  # noqa: B023
+        again, again_s = card_timed(lambda: build(card))  # noqa: B023
+        on_cpu, cpu_s = card_timed(lambda: build("cpu"))  # noqa: B023
+        state = graph_full_state(on_card)
+        equal = (
+            len(state[0]) > 0 and not on_card.is_lazy and on_card.lazy_tables() is None
+            and graph_tables.DEVICE_RUNS[card.type] == runs + 2
+            and state == graph_full_state(on_cpu) and state == graph_full_state(again)
+        )
+        row = {"k": k, "reads": len(part), "genes": sum(len(g) for g in part.values()),
+               "nodes": len(state[0]), "edges": len(state[1]), "first_seconds": first_s,
+               "again_seconds": again_s, "cpu_seconds": cpu_s, "equal": bool(equal)}
+        rows.append(row)
+        print(
+            f"phase 7b build without a cache (k={k}, {row['reads']} reads, {row['genes']} genes, "
+            f"{row['nodes']} nodes, {row['edges']} edges): on {card} {first_s:.3f} s (again "
+            f"{again_s:.3f} s), on the CPU {cpu_s:.3f} s; eager and equal to the CPU's: {equal}"
+        )
+        if not equal:
+            fail(f"phase 7b: the build without a cache at k = {k} differs between the card and the CPU")
+        del on_card, again, on_cpu
+    inputs = golden_cleaning_inputs(golden_files)
+    corrected = {}
+    for dev in (card, "cpu"):
+        reads7, pos7, fastq, goi, coverages, min_cov = copy.deepcopy(inputs)
+        short_reads, short_pos = {}, {}
+        t0 = time.time()
+        result = build_and_correct_graph(
+            reads7, pos7, 3, fastq, os.path.join(WORK, "uncached", str(dev)), False, coverages, 1,
+            short_reads, short_pos, goi, min_cov, True, GeneVocab(), None, device=dev,
+        )
+        torch.cuda.synchronize()
+        corrected[str(dev)] = (result, short_reads, short_pos, time.time() - t0)
+    got, *_, card_s = corrected[str(card)]
+    cpu_s = corrected["cpu"][3]
+    equal = corrected[str(card)][:3] == corrected["cpu"][:3]
+    print(
+        f"phase 7b build_and_correct_graph(cache=None) on the seed-7 isolate: on {card} "
+        f"{card_s:.3f} s, on the CPU {cpu_s:.3f} s; k = {got[2]}, {len(got[0])} reads; "
+        f"corrected calls equal: {equal}"
+    )
+    if not equal:
+        fail("phase 7b: build_and_correct_graph(cache=None) differs between the card and the CPU")
+    return {"builds": rows, "correct_card_seconds": card_s, "correct_cpu_seconds": cpu_s,
+            "chosen_k": got[2]}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reads", type=int, default=50_000, help="reads of the phase-4 isolate")
@@ -1673,7 +1933,7 @@ def main():
     lap("phase 1")
     timed, sweep = check_kernels(device)
     lap("phase 2")
-    check_golden(device)
+    golden_files, golden_tables = check_golden(device)
     lap("phase 3")
     files = wait_scale_isolate(scale_isolate, args.reads)
     summary, scale_out = run_main_path(files, device)
@@ -1698,10 +1958,20 @@ def main():
     dist_kmer = run_dist_kmer(all_seqs, device)
     lap("phase 6d")
     two_procs = run_two_processes(initial, all_seqs[:SAM_READS], device)
+    first_seqs = all_seqs[:SORTED_READS]
     del all_seqs
     lap("phase 6e")
     graft = run_graft_entry(initial, device)
     lap("phase 6f")
+    main_tables = {"sorted": summary["sorted_tables"], "dense": summary["dense_tables"]}
+    sorted_kmer = run_sorted_kmer(
+        first_seqs, os.path.join(scale_out, "AMR_allele_fastqs", "path_reads"), golden_tables,
+        main_tables, device,
+    )
+    del first_seqs
+    lap("phase 7a")
+    uncached = run_uncached_build(initial, golden_files, device)
+    lap("phase 7b")
 
     kernels = []
     for name, replaces in (
@@ -1734,7 +2004,7 @@ def main():
              "main_path": summary, "sam_route": sam, "assemble_paths": asm, "modes": modes,
              "batch": batch_runs, "dist_build": dist, "table_meshes": table_meshes,
              "dist_kmer": dist_kmer, "two_processes": two_procs, "graft_entry": graft,
-             "clock": clock},
+             "sorted_kmer": sorted_kmer, "uncached_build": uncached, "clock": clock},
             f, indent=1,
         )
     print(card)

@@ -5,11 +5,13 @@ tests/test_graph_cache.py), for cold builds and for mutated rebuilds through
 a shared build cache, at k = 3, 5 and 7. One case forces every cache miss
 through the port's torch `pack_flat_windows` instead of the NumPy mirror.
 
-A cold build without a cache is held to both JAX builds as a caller makes
-them, with fresh vocabularies: the JAX uncached build numbers genes in read
-order, short reads included, and so must the port's (one read set puts
-genes on short reads before any long read has them). Without a cache the
-port's constructor builds on the card unless it is given a device.
+A cold build is held to both JAX builds as a caller makes them, with
+fresh vocabularies: through a cache against JAX's cached build, and without
+one (the port's `_build`, eager, its tables grouped on the named device)
+against JAX's uncached device build, which numbers genes in read order,
+short reads included (one read set puts genes on short reads before any
+long read has them). Without a cache the port's constructor builds on the
+card unless it is given a device.
 
 Tolerance: zero; every field is compared exactly.
 """
@@ -135,6 +137,7 @@ def test_cold_build_identical(k, source, reference_build, tmp_path):
         got = port_graph.GeneMerGraph(
             calls, k, positions, vocab=PortVocab(), cache=PortCache("cpu")
         )
+    assert got.is_lazy == ref.is_lazy
     assert got.get_total_number_of_nodes() == len(ref.get_nodes())
     assert got.get_total_number_of_edges() == len(ref.get_edges())
     assert_graphs_identical(ref, got)
@@ -151,7 +154,8 @@ def test_cold_build_identical(k, source, reference_build, tmp_path):
 
 def test_uncached_build_asks_for_the_card(monkeypatch):
     """F6: without a cache and without a device the constructor resolves
-    "cuda", which raises on a machine without CUDA; a named device is used."""
+    "cuda", which raises on a machine without CUDA; with a named device it
+    groups its tables there and builds an eager graph."""
     import torch
 
     calls, positions = _random_reads(3, n_reads=10)
@@ -159,15 +163,17 @@ def test_uncached_build_asks_for_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         port_graph.GeneMerGraph(calls, 3, positions)
     asked = []
-    real = port_graph.GraphBuildCache
+    real = graph_tables.assemble_node_tables
 
-    def recording(device):
-        asked.append(device)
-        return real(device)
+    def recording(occ_hash, occ_read, occ_key):
+        asked.append(occ_hash.device)
+        return real(occ_hash, occ_read, occ_key)
 
-    monkeypatch.setattr(port_graph, "GraphBuildCache", recording)
-    port_graph.GeneMerGraph(calls, 3, positions, device="cpu")
+    monkeypatch.setattr(graph_tables, "assemble_node_tables", recording)
+    graph = port_graph.GeneMerGraph(calls, 3, positions, device="cpu")
     assert asked == [torch.device("cpu")]
+    assert not graph.is_lazy and graph.lazy_tables() is None
+    assert graph.get_total_number_of_nodes() > 0
 
 
 @pytest.mark.parametrize(

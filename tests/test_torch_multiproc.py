@@ -8,8 +8,10 @@ eight shards, on the JAX two-process test's inputs. Each process's count
 table equals JAX's serial `local_genemer_tables`, JAX's 3D step on 8 CPU
 devices and the port's 3D step in one process; each process's bin range
 equals the host counter (checked in the worker) and, by digest, the
-port's one-process step and JAX's table. A hang fails the test. "nccl"
-with two ranks on one device raises before any process starts.
+port's one-process step and JAX's table. A hang fails the test. The
+worker's reference bin range is held to JAX's counter with each of the
+port's counters forced in turn. "nccl" with two ranks on one device
+raises before any process starts.
 
 Tolerance: zero; every comparison is exact.
 """
@@ -20,6 +22,7 @@ import pytest
 import torch
 from jax.sharding import Mesh as JaxMesh
 
+from amira_tpu.ops import kmer as jax_kmer
 from amira_tpu.parallel import distgraph as jax_distgraph
 from amira_tpu_torch.ops import kmer
 from amira_tpu_torch.parallel import distgraph, multiproc
@@ -66,6 +69,22 @@ def test_two_process_gloo_run_equals_jax_and_one_process(tmp_path):
             part = jax_table[lo:hi].astype(np.int32)
             jax_bins[: len(part)] = part
             assert digest == multiproc.bins_digest(torch.from_numpy(jax_bins), lo)
+
+
+@pytest.mark.parametrize("counter", ["sorted", "dense", "host"])
+def test_counter_range_from_every_counter(counter, monkeypatch):
+    monkeypatch.setattr(kmer, "counter_for", lambda device_type, n_codes: counter)
+    _, (seqs, kk) = multiproc.dcn_inputs()
+    ref = jax_kmer.KmerCounter.from_sequences(seqs, kk)
+    bins = np.zeros(4**kk + 8, np.int32)
+    bins[ref.kmers.astype(np.int64)] = ref.counts
+    nonzero = 0
+    for lo, hi in [(0, 4096), (5000, 9000), (4**kk - 100, 4**kk + 8)]:
+        got = multiproc._counter_range(seqs, kk, "cpu", lo, hi)
+        assert got.dtype == torch.int32 and got.shape == (hi - lo,)
+        assert np.array_equal(got.numpy(), bins[lo:hi])
+        nonzero += int((got != 0).sum())
+    assert nonzero > 0
 
 
 def test_nccl_with_ranks_on_one_device_raises(tmp_path):
