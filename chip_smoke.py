@@ -27,9 +27,11 @@ Run from the root of a checkout. Phases, each printing its own lines:
 4. The main path at a real isolate size: a 4,003-slot E. coli-like genome,
    amrX at two loci plus amrY, 10-20 genes (4-8 kb) per read, 5% gene-call
    noise, seed 17, --reads reads (default 50,000, about 300 Mbp). The
-   isolate is generated in a child process with PYTHONHASHSEED=0, started
-   before phase 1's build so that it overlaps phases 1-3, and the SHA-256
-   of its decompressed FASTQ is printed: every call runs on the same bases.
+   isolate is generated by `amira_tpu_torch.scale_run.start_generation`
+   (scale_run's layout and arguments) in a child process with
+   PYTHONHASHSEED=0, started before phase 1's build so that it overlaps
+   phases 1-3, and the SHA-256 of its decompressed FASTQ is printed: every
+   call runs on the same bases.
    The CLI runs with --device cuda; the result must be two amrX rows and
    one amrY row matching allele NG001 at >= 99% identity, every kernel of
    the path must have launched, the large graph build must have hashed its
@@ -99,17 +101,29 @@ Run from the root of a checkout. Phases, each printing its own lines:
       and the first UNCACHED_READS reads at k = 5 and 7, each equal in
       full to the same build on the CPU; `build_and_correct_graph` without
       a cache on phase 3's isolate gives the CPU's corrected calls.
+8. The repo's two run scripts, through the port's twins:
+   a. `amira_tpu_torch.accuracy_run` at its defaults (20,000 reads, 2 %/1 %
+      base errors, seed 23; generated in a second child started beside
+      phase 4's) on the card: amrX x2 + amrY, copy recall and precision
+      1.0 and mean identity of the recovered alleles against the
+      simulator's truth >= 99 %; then the same isolate through the port on
+      the CPU, whose JSON values, table rows and amira_results.tsv must
+      equal the card's;
+   b. `amira_tpu_torch.scale_run --reuse` on phase 4's workdir and read
+      count, on the card: it must take the generation's marker (no second
+      generation), write its report and summary and give phase 4's
+      amira_results.tsv byte for byte.
 
 The next-to-last lines are the card line and one JSON object describing
 each kernel; the last line is {"ok": true, "device": {...}}. Any failed
 phase exits non-zero without that line, as does a machine without CUDA.
 The kernels JSON line reports each kernel at the main path's largest
 launch, (B, Lq, W) = (980, 1024, 256), with its launches on the main path
-(phase 4), on the SAM route (5b), in the path assembly (5c) and in each
-batch (6a, summed over its isolates), and its W = 512 checks and time
-(5a). Data, outputs and a JSON summary
-(chip_work/chip_smoke_summary.json) go under chip_work/, which .gitignore
-lists.
+(phase 4), on the SAM route (5b), in the path assembly (5c), in each
+batch (6a, summed over its isolates), in the accuracy run on the card (8a)
+and in scale_run's (8b), and its W = 512 checks and time (5a). Data,
+outputs and a JSON summary (chip_work/chip_smoke_summary.json) go under
+chip_work/, which .gitignore lists.
 """
 
 from __future__ import annotations
@@ -677,18 +691,6 @@ def check_golden(device):
     return files, tables
 
 
-def scale_layout():
-    """The 4,003-slot genome of scale_run.py: amrX at two loci, amrY once."""
-    layout = []
-    for i in range(4000):
-        layout.append(f"gene{i}")
-        if i in (500, 2900):
-            layout.append("amrX")
-        if i == 1700:
-            layout.append("amrY")
-    return layout
-
-
 def check_scale_rows(out, label):
     """The scale isolate's amira_results.tsv under `out`: two amrX rows and
     one amrY row, each matching allele NG001 at >= 99 % identity. Prints
@@ -712,66 +714,38 @@ def check_scale_rows(out, label):
     return rows
 
 
-def scale_files(d, n_reads):
-    """Generates phase 4's isolate under `d`/data (scale_run.py's generator
-    cut to `n_reads` reads) and writes its files, gene sequences and the
-    SHA-256 of its decompressed FASTQ to `d`/files.json. Run by
-    start_scale_isolate in a child process with PYTHONHASHSEED=0:
-    make_isolate draws gene sequences in the order of a set of names, which
-    follows string hashing, so the bases are the same in every call only
-    with the hash seed fixed."""
-    import gzip
-    import hashlib
+def start_isolate(name, n_reads, **extra):
+    """Starts generating an isolate of scale_run's genome under
+    chip_work/smoke/`name`/data (`scale_run.start_generation` with
+    `extra`: seed 17 by default, in a child process with PYTHONHASHSEED=0),
+    so that it overlaps phases 1-3; returns the generation's handle."""
+    from amira_tpu_torch import scale_run
 
-    from synthetic import make_isolate
-
-    files = make_isolate(
-        os.path.join(d, "data"), n_reads=n_reads, seed=17, layout=scale_layout(),
-        amr_genes=("amrX", "amrY"), genes_per_read=(10, 20), gene_len=400,
-        fast=True, call_noise=0.05,
-    )
-    digest = hashlib.sha256()
-    with gzip.open(files["fastq"], "rb") as f:
-        for chunk in iter(lambda: f.read(1 << 24), b""):
-            digest.update(chunk)
-    files["fastq_sha256"] = digest.hexdigest()
-    with open(os.path.join(d, "files.json"), "w") as f:
-        json.dump(files, f)
+    handle = scale_run.start_generation(os.path.join(WORK, name, "data"), n_reads, **extra)
+    # a phase that fails before the isolate's phase exits: stop the child with it
+    atexit.register(lambda: handle[0].poll() is None and handle[0].kill())
+    return handle
 
 
-def start_scale_isolate(n_reads):
-    """Starts generating phase 4's isolate (scale_files) in a child process
-    with PYTHONHASHSEED=0, so that it overlaps phases 1-3; returns
-    (process, directory, start time)."""
-    d = os.path.join(WORK, "scale")
-    os.makedirs(d, exist_ok=True)
-    env = dict(os.environ, PYTHONHASHSEED="0")
-    env["PYTHONPATH"] = os.pathsep.join([ROOT, os.path.join(ROOT, "tests")])
-    code = f"import chip_smoke; chip_smoke.scale_files({d!r}, {n_reads})"
-    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env)
-    # a phase that fails before phase 4 exits: stop the child with it
-    atexit.register(lambda: proc.poll() is None and proc.kill())
-    return proc, d, time.time()
+def wait_scale_isolate(handle, n_reads):
+    """Waits for phase 4's generation child; returns the isolate's files."""
+    from amira_tpu_torch import scale_run
 
-
-def wait_scale_isolate(started, n_reads):
-    """Waits for start_scale_isolate's child; returns the isolate's files."""
-    proc, d, t0 = started
-    if proc.wait() != 0:
-        fail(f"generating phase 4's isolate failed (exit {proc.returncode})")
-    with open(os.path.join(d, "files.json")) as f:
-        files = json.load(f)
+    try:
+        files = scale_run.wait_generation(handle)
+    except RuntimeError as e:
+        fail(f"phase 4: {e}")
     print(
-        f"phase 4 generated {n_reads} reads in a child process (PYTHONHASHSEED=0) "
-        f"{time.time() - t0:.1f} s after it started (host, overlapping phases 1-3, "
-        f"not timed below); FASTQ sha256 {files['fastq_sha256']}"
+        f"phase 4 generated {n_reads} reads in {files['generation_seconds']:.1f} s in a child "
+        f"process (PYTHONHASHSEED=0; host, overlapping phases 1-3, not timed below); "
+        f"FASTQ sha256 {files['fastq_sha256']}"
     )
     return files
 
 
 def run_main_path(files, device):
     """Phase 4: the main path at a real isolate size, on the isolate of
-    start_scale_isolate. Returns its summary and the output directory."""
+    start_isolate("scale", ...). Returns its summary and the output directory."""
     import torch
 
     from amira_tpu_torch.ops import graph_tables, kmer, sw_batch
@@ -1895,6 +1869,94 @@ def run_uncached_build(initial, golden_files, device):
             "chosen_k": got[2]}
 
 
+ACCURACY_READS = 20_000  # phase 8a: accuracy_run's defaults
+ACCURACY_SUB, ACCURACY_INDEL = 0.02, 0.01
+# the keys of accuracy_run.py's JSON line that hold the same values on every
+# device (its "platform" names the device)
+ACCURACY_KEYS = ("metric", "value", "unit", "copy_recall", "copy_precision", "reads", "sub", "indel")
+
+
+def run_accuracy(handle, device):
+    """Phase 8a: the accuracy twin (`accuracy_run.evaluate`) on the card,
+    then the same isolate through the port on the CPU: amrX x2 + amrY, copy
+    recall and precision 1.0 and identity against the truth >= 99 % on the
+    card, and the CPU's JSON values, table rows and TSV equal to the card's."""
+    from amira_tpu_torch import accuracy_run, scale_run
+    from amira_tpu_torch.ops import sw_batch
+
+    try:
+        files = scale_run.wait_generation(handle)
+    except RuntimeError as e:
+        fail(f"phase 8a: {e}")
+    print(
+        f"phase 8a generated {ACCURACY_READS} reads in {files['generation_seconds']:.1f} s in a "
+        f"child process (PYTHONHASHSEED=0) started before phase 1; FASTQ sha256 "
+        f"{files['fastq_sha256']}"
+    )
+    d = os.path.join(WORK, "accuracy")
+    for key in sw_batch.LAUNCHES:
+        sw_batch.LAUNCHES[key] = 0
+    card = accuracy_run.evaluate(files, os.path.join(d, "out_card"), device, ACCURACY_SUB, ACCURACY_INDEL)
+    launches = dict(sw_batch.LAUNCHES)
+    genes = sorted(r[1] for r in card["rows"])
+    if genes != ["amrX", "amrX", "amrY"]:
+        fail(f"phase 8a: expected amrX x2 + amrY, got {genes}")
+    if card["copy_recall"] != 1.0 or card["copy_precision"] != 1.0:
+        fail(f"phase 8a: copy recall {card['copy_recall']}, precision {card['copy_precision']}")
+    if card["value"] < 99.0:
+        fail(f"phase 8a: mean identity against the truth {card['value']} % < 99 %")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"phase 8a: kernel {name} was not launched")
+    cpu = accuracy_run.evaluate(files, os.path.join(d, "out_cpu"), "cpu", ACCURACY_SUB, ACCURACY_INDEL)
+    same = {k: cpu[k] == card[k] for k in ACCURACY_KEYS}
+    with open(os.path.join(card["out"], "amira_results.tsv"), "rb") as f, \
+            open(os.path.join(cpu["out"], "amira_results.tsv"), "rb") as g:
+        same_tsv = f.read() == g.read()
+    print(
+        f"phase 8a accuracy: card {card['seconds']:.1f} s, CPU {cpu['seconds']:.1f} s; identity "
+        f"{card['value']} %, recall {card['copy_recall']}, precision {card['copy_precision']}; "
+        f"launches {launches}; CPU equal: values {same}, rows {cpu['rows'] == card['rows']}, "
+        f"TSV {same_tsv}"
+    )
+    if not all(same.values()) or cpu["rows"] != card["rows"] or not same_tsv:
+        fail("phase 8a: the CPU run of the accuracy isolate differs from the card's")
+    return {"card": card, "cpu": cpu, "launches": launches, "fastq_sha256": files["fastq_sha256"]}
+
+
+def run_scale_twin(files, scale_out, device):
+    """Phase 8b: `scale_run.main --reuse` on phase 4's workdir, on the card:
+    it must take the generation's marker (no second generation), write its
+    report and summary and give phase 4's amira_results.tsv byte for byte."""
+    from amira_tpu_torch import scale_run
+
+    workdir = os.path.dirname(files["fastq"])
+    t0 = time.time()
+    summary = scale_run.main([
+        "--reuse", "--workdir", workdir, "--reads", str(files["n_reads"]), "--device", device,
+    ])
+    wall_s = time.time() - t0
+    out = os.path.join(workdir, "out")
+    if not summary["generation_reused"]:
+        fail("phase 8b: scale_run generated the isolate again")
+    for name in ("SCALE_REPORT.md", "scale_summary.json"):
+        if not os.path.exists(os.path.join(out, name)):
+            fail(f"phase 8b: scale_run wrote no {name}")
+    with open(os.path.join(out, "amira_results.tsv"), "rb") as f, \
+            open(os.path.join(scale_out, "amira_results.tsv"), "rb") as g:
+        if f.read() != g.read():
+            fail("phase 8b: scale_run's amira_results.tsv differs from phase 4's")
+    for name, n in summary["launches"].items():
+        if n <= 0:
+            fail(f"phase 8b: kernel {name} was not launched")
+    print(
+        f"phase 8b scale_run --reuse: {wall_s:.1f} s ({summary['seconds']:.1f} s in the pipeline), "
+        f"TSV equals phase 4's; peak device memory {summary['peak_device_memory_bytes']} bytes, "
+        f"host peak RSS {summary['host_peak_rss_bytes']} bytes, launches {summary['launches']}"
+    )
+    return {**summary, "wall_seconds": wall_s}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reads", type=int, default=50_000, help="reads of the phase-4 isolate")
@@ -1905,6 +1967,7 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs an NVIDIA GPU")
     sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
+    from amira_tpu_torch import accuracy_run
     from amira_tpu_torch.ops import sw_batch
 
     device = "cuda"
@@ -1915,7 +1978,10 @@ def main():
     ).stdout.strip().splitlines()[0]
     print(f"phase 1 device: {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     shutil.rmtree(WORK, ignore_errors=True)
-    scale_isolate = start_scale_isolate(args.reads)
+    scale_isolate = start_isolate("scale", args.reads)
+    accuracy_isolate = start_isolate(
+        "accuracy", ACCURACY_READS, **accuracy_run.isolate_params(ACCURACY_SUB, ACCURACY_INDEL)
+    )
     t0 = time.time()
     lib = sw_batch.build()
     print(f"phase 1 build: {os.path.relpath(lib, ROOT)} in {time.time() - t0:.2f} s")
@@ -1972,6 +2038,10 @@ def main():
     lap("phase 7a")
     uncached = run_uncached_build(initial, golden_files, device)
     lap("phase 7b")
+    accuracy = run_accuracy(accuracy_isolate, device)
+    lap("phase 8a")
+    scale_twin = run_scale_twin(files, scale_out, device)
+    lap("phase 8b")
 
     kernels = []
     for name, replaces in (
@@ -1988,6 +2058,8 @@ def main():
             "launches_sam_route": sam["launches"][name],
             "launches_assemble_paths": asm["launches"][name],
             "launches_batch": {k: r["launches"][name] for k, r in batch_runs.items()},
+            "launches_accuracy": accuracy["launches"][name],
+            "launches_scale_run": scale_twin["launches"][name],
             "w512": {
                 **w512_timed[name],
                 "edge_max_abs_err": w512_edges["edge_max_abs_err"][name],
@@ -2004,7 +2076,8 @@ def main():
              "main_path": summary, "sam_route": sam, "assemble_paths": asm, "modes": modes,
              "batch": batch_runs, "dist_build": dist, "table_meshes": table_meshes,
              "dist_kmer": dist_kmer, "two_processes": two_procs, "graft_entry": graft,
-             "sorted_kmer": sorted_kmer, "uncached_build": uncached, "clock": clock},
+             "sorted_kmer": sorted_kmer, "uncached_build": uncached, "accuracy": accuracy,
+             "scale_run": scale_twin, "clock": clock},
             f, indent=1,
         )
     print(card)

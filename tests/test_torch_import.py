@@ -62,6 +62,7 @@ def test_every_module_imports_without_jax_or_reference_package():
     assert {
         "amira_tpu_torch.promoters", "amira_tpu_torch.assembly", "amira_tpu_torch.graft_entry",
         "amira_tpu_torch.parallel.mesh", "amira_tpu_torch.parallel.multiproc",
+        "amira_tpu_torch.scale_run", "amira_tpu_torch.accuracy_run",
     } <= set(names)
 
 
