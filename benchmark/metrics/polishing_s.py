@@ -1,0 +1,8 @@
+"""polishing_s: the mean seconds an isolate of the window spends in the
+program's phase(s) "allele_polishing" (tracing.PhaseTimer)."""
+
+from phases import mean_phase
+
+
+def read(run):
+    return mean_phase(run, ("allele_polishing",))
