@@ -11,6 +11,7 @@ by a correction (construct_graph.py:1877-1881).
 
 from __future__ import annotations
 
+import time
 from collections import Counter
 
 import numpy as np
@@ -18,7 +19,7 @@ import numpy as np
 from .correct import needleman_wunsch, replace_invalid_gene_positions
 from .sketch import MinHash
 from .stree import SequenceIndex
-from .tracing import ThreadSeconds
+from .tracing import TIMER
 
 
 
@@ -185,9 +186,6 @@ def get_all_paths_between_junctions_in_component(
         ),
         dtype=np.int32,
     )
-    import time as _time
-
-    _t = _time.time()
     frontier = starts_arr[:, None]  # (P, depth) state rows
     start_of = np.arange(len(starts_arr))  # index into bubble_starts
     recorded: list = []  # (depth-level path matrices, start indices)
@@ -217,8 +215,6 @@ def get_all_paths_between_junctions_in_component(
         rec = is_junction[frontier[:, -1] >> 1]
         if rec.any():
             recorded.append((frontier[rec], start_of[rec]))
-    SWEEP_STAGE_SECONDS["ps.frontier"] += _time.time() - _t
-    _t = _time.time()
 
     if not recorded:
         if return_matrices:
@@ -282,8 +278,6 @@ def get_all_paths_between_junctions_in_component(
         all_keys, return_inverse=True, return_counts=True
     )
     multi = counts[inv] > 1  # a path is valid iff its group has > 1 path
-    SWEEP_STAGE_SECONDS["ps.group"] += _time.time() - _t
-    _t = _time.time()
     # packed-key width: every state fits `bits`, so `per` states pack into
     # one uint64 sort key — the per-column lexsort re-scanned every row
     # once per depth column and dominated the 500k path search
@@ -331,12 +325,9 @@ def get_all_paths_between_junctions_in_component(
             [[True], (ks[1:] != ks[:-1]).any(axis=1)]
         )
         levels_out.append(canon[order][keep_row])
-    SWEEP_STAGE_SECONDS["ps.canon"] += _time.time() - _t
-    _t = _time.time()
     if return_matrices:
         # fast path: the containment filter consumes the int32 rows and
         # materializes tuples for survivors only (>99% of paths drop)
-        SWEEP_STAGE_SECONDS["ps.tuples"] += _time.time() - _t
         return levels_out, hash_list
     out: list = []
     row_of: dict = {}
@@ -351,7 +342,6 @@ def get_all_paths_between_junctions_in_component(
     # legacy tuple API (oracle/parity tests): preserve the historical
     # set-round-trip ordering
     result = list(set(out))
-    SWEEP_STAGE_SECONDS["ps.tuples"] += _time.time() - _t
     if return_rows:
         return result, row_of
     return result
@@ -508,9 +498,6 @@ def _containment_drop_mask(mat, lens, n_sym):
     OTHER path (forward or plain-reversed) occurs contiguously inside it.
     `mat` is the padded symbol matrix sorted by ascending row length with
     pad symbol n_sym; returns the boolean drop mask."""
-    import time as _time
-
-    _t = _time.time()
     n_paths = mat.shape[0]
     Lmax = mat.shape[1]
     rng = np.random.RandomState(0xA31)
@@ -548,8 +535,6 @@ def _containment_drop_mask(mat, lens, n_sym):
     # so later classes hash a few thousand rows instead of hundreds of
     # thousands
     alive = np.arange(n_paths)
-    SWEEP_STAGE_SECONDS["pf.build"] += _time.time() - _t
-    _t = _time.time()
     for Lq, q_idx in sorted(by_len.items()):
         q_idx_arr = np.asarray(q_idx)
         # query hashes at offset 0: forward, and plain reversal (no dir
@@ -615,7 +600,6 @@ def _containment_drop_mask(mat, lens, n_sym):
                     break
                 ci += 1
         alive = alive[~dropped[alive]]
-    SWEEP_STAGE_SECONDS["pf.loop"] += _time.time() - _t
     return dropped
 
 
@@ -684,9 +668,6 @@ def get_minhashes_for_paths(graph, sorted_filtered_paths, fastq_data):
     # O(node incidences x read length). Span order (node.reads order,
     # then position order) is unchanged, so the persistent fingerprint
     # cache keeps hitting across builds.
-    import time as _time
-
-    _t = _time.time()
     needed = set(node_minhashes)
     occ_of_read: dict = {}
 
@@ -718,14 +699,10 @@ def get_minhashes_for_paths(graph, sorted_filtered_paths, fastq_data):
         for read, _s, _e in spans:
             if read not in read_index and read not in missing:
                 missing[read] = fastq_data[read]["sequence"]
-    SWEEP_STAGE_SECONDS["sk.spans"] += _time.time() - _t
-    _t = _time.time()
     if missing:
         read_index.update(
             batch_read_kept_kmer_index(missing, ksize=11, scaled=10)
         )
-    SWEEP_STAGE_SECONDS["sk.hash"] += _time.time() - _t
-    _t = _time.time()
     # resolve fingerprint hits, then assemble the remaining node sketches
     # span by span (a fully-global searchsorted + gather variant was
     # tried and ran SLOWER: its flattened hash stream materialized ~GB of
@@ -758,7 +735,6 @@ def get_minhashes_for_paths(graph, sorted_filtered_paths, fastq_data):
             store[h] = (tuple(spans), mh)
     for nodes in path_minimizers:
         path_minimizers[nodes] = [node_minhashes[h] for h in nodes]
-    SWEEP_STAGE_SECONDS["sk.assemble"] += _time.time() - _t
     return path_minimizers
 
 
@@ -1037,9 +1013,6 @@ def correct_bubble_paths(
     min_path_coverage,
     threshold=0.80,
 ):
-    import time as _time
-
-    _t = _time.time()
     k = graph.get_kmerSize()
     seen_nodes: dict = {}
     correction_operations: set = set()
@@ -1060,8 +1033,6 @@ def correct_bubble_paths(
                 minimizer_arrays,
             )
     get_path_reads_to_correct(graph, reads_to_correct, seen_nodes)
-    SWEEP_STAGE_SECONDS["co.pairs"] += _time.time() - _t
-    _t = _time.time()
 
     fw_alignments, bw_alignments = {}, {}
     fw_counters, bw_counters = {}, {}
@@ -1089,8 +1060,6 @@ def correct_bubble_paths(
         fw_counters[operation] = Counter(gene_mers)
         bw_counters[operation] = Counter(rev_gene_mers)
 
-    SWEEP_STAGE_SECONDS["co.align"] += _time.time() - _t
-    _t = _time.time()
     # the reorient/LCS/NW chain is a pure function of (operation, the
     # read's gene sequence); after cleaning convergence most reads share
     # gene sequences, so compute each distinct pair ONCE and replay the
@@ -1148,37 +1117,7 @@ def correct_bubble_paths(
             graph, first_idx, last_idx, alignment_subset, read_id,
             fastq_data,
         )
-    SWEEP_STAGE_SECONDS["co.reads"] += _time.time() - _t
     return path_coverages
-
-
-# cumulative wall-clock per sweep stage (reset/printed by the cleaning
-# loop's stage accounting; purely observational). One set per thread: a
-# batch cleans several isolates at once, each in its own thread.
-SWEEP_STAGE_SECONDS = ThreadSeconds(
-    (
-        "path_search",
-        "path_filter",
-        "sketches",
-        "corrections",
-        # path_search internals
-        "ps.frontier",
-        "ps.group",
-        "ps.canon",
-        "ps.tuples",
-        # containment filter internals
-        "pf.build",
-        "pf.loop",
-        # sketch internals
-        "sk.spans",
-        "sk.hash",
-        "sk.assemble",
-        # correction internals
-        "co.pairs",
-        "co.align",
-        "co.reads",
-    )
-)
 
 
 def correct_low_coverage_paths(
@@ -1192,8 +1131,6 @@ def correct_low_coverage_paths(
 ):
     """One bubble-popping sweep over every component
     (construct_graph.py:2196-2250)."""
-    import time as _time
-
     assert graph.get_gene_positions()
     potential_bubble_starts = identify_potential_bubble_starts(graph)
     max_distance = graph.get_kmerSize() * 4
@@ -1204,24 +1141,24 @@ def correct_low_coverage_paths(
         if component not in potential_bubble_starts:
             continue
         starts = potential_bubble_starts[component]
-        t0 = _time.time()
+        t0 = time.perf_counter()
         levels, hash_list = get_all_paths_between_junctions_in_component(
             graph, starts, max_distance, return_matrices=True
         )
-        t1 = _time.time()
-        SWEEP_STAGE_SECONDS["path_search"] += t1 - t0
+        t1 = time.perf_counter()
+        TIMER.count("path_search", t1 - t0)
         filtered = filter_path_matrices(graph, levels, hash_list)
         sorted_filtered = sorted(filtered, key=lambda x: len(x[0]))
-        t2 = _time.time()
-        SWEEP_STAGE_SECONDS["path_filter"] += t2 - t1
+        t2 = time.perf_counter()
+        TIMER.count("path_filter", t2 - t1)
         if use_minimizers:
             path_minimizers = get_minhashes_for_paths(
                 graph, sorted_filtered, fastq_data
             )
         else:
             path_minimizers = None
-        t3 = _time.time()
-        SWEEP_STAGE_SECONDS["sketches"] += t3 - t2
+        t3 = time.perf_counter()
+        TIMER.count("sketches", t3 - t2)
         binned = separate_paths_by_terminal_nodes(sorted_filtered)
         path_coverages += correct_bubble_paths(
             graph,
@@ -1231,7 +1168,7 @@ def correct_low_coverage_paths(
             genesOfInterest,
             min_path_coverage,
         )
-        SWEEP_STAGE_SECONDS["corrections"] += _time.time() - t3
+        TIMER.count("corrections", time.perf_counter() - t3)
     return (
         graph.get_reads(),
         graph.get_gene_positions(),

@@ -15,6 +15,7 @@ import numpy as np
 
 from . import clean
 from .graph import GeneMerGraph
+from .tracing import TIMER
 
 
 def build_graph(read_dict, kmer_size, gene_positions=None, vocab=None, cache=None, device=None):
@@ -43,106 +44,75 @@ def iterative_bubble_popping(
     device=None,
 ):
     """Iterate {rebuild, filter, correct, trim tips, pop bubbles} until the
-    node count stops changing (amira/graph_utils.py:127-181). Sub-stage
-    wall-clock accumulates into the phase timer's metadata so scale runs
-    show WHERE cleaning time goes."""
-    import time as _time
-
-    from .tracing import TIMER
-
+    node count stops changing (amira/graph_utils.py:127-181). Each stage of
+    each iteration is a span of the open phase: `clean.build`,
+    `clean.filter_correct`, `clean.short_reads`, `clean.tips` and
+    `clean.bubbles` (whose counters hold the sweep's own stage seconds)."""
     prev_nodes = 0
     components_to_skip: set = set()
-    stage_s = {"build": 0.0, "filter_correct": 0.0, "tips": 0.0, "bubbles": 0.0}
-    from . import bubbles as _bubbles
-
-    for _k in _bubbles.SWEEP_STAGE_SECONDS:
-        _bubbles.SWEEP_STAGE_SECONDS[_k] = 0.0
-
-    def _tick():
-        return _time.time()
-
     for this_iteration in range(cleaning_iterations):
         if not quiet:
             sys.stderr.write(
                 f"\namira-tpu: graph cleaning iteration {this_iteration + 1}\n"
             )
-        t0 = _tick()
-        graph = build_graph(
-            new_annotatedReads, geneMer_size, new_gene_position_dict, vocab, cache, device
-        )
-        stage_s["build"] += _tick() - t0
-        t0 = _tick()
-        if graph.is_lazy:
-            # tensor path: filter + correction from the aggregation tables,
-            # no Node/Edge materialization (amira_tpu/clean.py; parity with
-            # the object path is pinned by tests/test_tensor_clean.py)
-            new_annotatedReads, new_gene_position_dict = clean.filter_and_correct(
-                graph, node_min_coverage, fastq_content
+        with TIMER.span("clean.build"):
+            graph = build_graph(
+                new_annotatedReads, geneMer_size, new_gene_position_dict, vocab, cache, device
             )
-        else:
-            graph.filter_graph(node_min_coverage, 1)
-            new_annotatedReads, new_gene_position_dict = graph.correct_reads(
-                fastq_content
+        with TIMER.span("clean.filter_correct"):
+            if graph.is_lazy:
+                # tensor path: filter + correction from the aggregation tables,
+                # no Node/Edge materialization (amira_tpu/clean.py; parity with
+                # the object path is pinned by tests/test_tensor_clean.py)
+                new_annotatedReads, new_gene_position_dict = clean.filter_and_correct(
+                    graph, node_min_coverage, fastq_content
+                )
+            else:
+                graph.filter_graph(node_min_coverage, 1)
+                new_annotatedReads, new_gene_position_dict = graph.correct_reads(
+                    fastq_content
+                )
+        with TIMER.span("clean.build"):
+            graph = build_graph(
+                new_annotatedReads, geneMer_size, new_gene_position_dict, vocab, cache, device
             )
-        stage_s["filter_correct"] += _tick() - t0
-        t0 = _tick()
-        graph = build_graph(
-            new_annotatedReads, geneMer_size, new_gene_position_dict, vocab, cache, device
-        )
-        stage_s["build"] += _tick() - t0
         if graph.get_total_number_of_nodes() == prev_nodes:
             break
         prev_nodes = graph.get_total_number_of_nodes()
-        short_reads.update(graph.get_short_read_annotations())
-        short_read_gene_positions.update(graph.get_short_read_gene_positions())
-        t0 = _tick()
-        if graph.is_lazy:
-            new_annotatedReads, new_gene_position_dict = clean.tip_trim_and_correct(
-                graph, geneMer_size, fastq_content
+        with TIMER.span("clean.short_reads"):
+            short_reads.update(graph.get_short_read_annotations())
+            short_read_gene_positions.update(graph.get_short_read_gene_positions())
+        with TIMER.span("clean.tips"):
+            if graph.is_lazy:
+                new_annotatedReads, new_gene_position_dict = clean.tip_trim_and_correct(
+                    graph, geneMer_size, fastq_content
+                )
+            else:
+                graph.remove_short_linear_paths(geneMer_size)
+                new_annotatedReads, new_gene_position_dict = graph.correct_reads(
+                    fastq_content
+                )
+        with TIMER.span("clean.build"):
+            graph = build_graph(
+                new_annotatedReads, geneMer_size, new_gene_position_dict, vocab, cache, device
             )
-        else:
-            graph.remove_short_linear_paths(geneMer_size)
-            new_annotatedReads, new_gene_position_dict = graph.correct_reads(
-                fastq_content
+        with TIMER.span("clean.short_reads"):
+            short_reads.update(graph.get_short_read_annotations())
+            short_read_gene_positions.update(graph.get_short_read_gene_positions())
+        with TIMER.span("clean.bubbles"):
+            (
+                new_annotatedReads,
+                new_gene_position_dict,
+                _path_coverages,
+                min_path_coverage,
+            ) = graph.correct_low_coverage_paths(
+                fastq_content,
+                sample_genesOfInterest,
+                cores,
+                min_path_coverage,
+                components_to_skip,
+                True,
             )
-        stage_s["tips"] += _tick() - t0
-        t0 = _tick()
-        graph = build_graph(
-            new_annotatedReads, geneMer_size, new_gene_position_dict, vocab, cache, device
-        )
-        stage_s["build"] += _tick() - t0
-        short_reads.update(graph.get_short_read_annotations())
-        short_read_gene_positions.update(graph.get_short_read_gene_positions())
-        t0 = _tick()
-        (
-            new_annotatedReads,
-            new_gene_position_dict,
-            _path_coverages,
-            min_path_coverage,
-        ) = graph.correct_low_coverage_paths(
-            fastq_content,
-            sample_genesOfInterest,
-            cores,
-            min_path_coverage,
-            components_to_skip,
-            True,
-        )
-        stage_s["bubbles"] += _tick() - t0
-    # annotate the enclosing graph_cleaning phase entry (if one is open)
-    from .bubbles import SWEEP_STAGE_SECONDS
-
-    stage_s.update(
-        {f"bubbles.{k}": v for k, v in SWEEP_STAGE_SECONDS.items()}
-    )
-    for _name, _start, entry in TIMER._stack:
-        if _name == "graph_cleaning":
-            entry["stages"] = {k: round(v, 1) for k, v in stage_s.items()}
-    if not quiet:
-        sys.stderr.write(
-            "\namira-tpu: cleaning stage seconds: "
-            + ", ".join(f"{k}={v:.1f}" for k, v in stage_s.items())
-            + "\n"
-        )
     return new_annotatedReads, new_gene_position_dict
 
 

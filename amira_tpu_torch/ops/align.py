@@ -16,6 +16,16 @@ across bad joins, and collinear chain pieces are stitched back together
 with two-piece gap costs, so a read with a structural gap wider than the
 band still maps as one alignment with a long I/D run. Pairs with no seeds
 are reported unmapped.
+
+Under an open phase (`tracing`), each `map_reads` is divided into spans:
+`align.seed` (the seed chains), then per batch `align.pack` (the job
+arrays), `align.kernels` (the DP and traceback and the copies back, the
+host waiting for the card) and `align.unpack` (the CIGARs), and last
+`align.stitch` (z-drop split and stitch; `map_with_diagonals` has the
+batches and the stitch). `align.kernels` counts the batch's `launches`
+(one `sw_cigar`: one sw_dp and one sw_traceback launch), `jobs`,
+`live_cells` (query bases x band width, the DP's cells) and `tb_steps`
+(the traceback walks' steps), from host arrays the batch holds.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ import numpy as np
 import torch
 
 from ..sketch import encode_dna
+from ..tracing import TIMER
 
 NEG = -(2**28)
 
@@ -530,22 +541,7 @@ class Aligner:
             name, strand, diag = tgt
             qseq = seq if strand == "+" else reverse_complement(seq)
             jobs.append(((rid, name), strand, qseq, int(diag)))
-        raw: dict = {}
-        for (rid, name), strand, _qseq, aln in self._run_jobs(jobs):
-            raw.setdefault((rid, name, strand), []).append(aln)
-        results: dict = {}
-        for (rid, name, strand), alns in raw.items():
-            pieces = []
-            for a in alns:
-                pieces.extend(_zdrop_split(a))
-            if not pieces:
-                continue
-            best = _stitch_pieces(pieces) if len(pieces) > 1 else pieces[0]
-            per_read = results.setdefault(rid, {})
-            prev = per_read.get(name)
-            if prev is None or best.score > prev[1].score:
-                per_read[name] = (strand, best)
-        return results
+        return self._best_per_read(self._run_jobs(jobs))
 
     def map_sequence(self, seq: str, min_seeds: int = 2):
         """Map one query (both strands) against every reference; returns
@@ -618,53 +614,59 @@ class Aligner:
     def _run_batch(self, batch, lq, W, out):
         from .sw_batch import sw_cigar
 
-        lr_max = max(len(self.ref_codes[j[0][1]]) for j in batch)
-        P = W + lq  # real-ref offset inside the padded buffer
-        # the band reads reference bytes up to index lr + 2W + 2lq - 3
-        rlen = lr_max + 2 * W + 2 * lq
-        B = len(batch)
-        qs_a = np.full((B, lq), 4, dtype=np.uint8)
-        rs_a = np.full((B, rlen), 4, dtype=np.uint8)
-        qlens_a = np.empty(B, np.int32)
-        dlos_a = np.empty(B, np.int32)
-        for bidx, (tag, strand, qseq, diag) in enumerate(batch):
-            qc = encode_dna(qseq)
-            qs_a[bidx, : len(qc)] = qc
-            rc = self.ref_codes[tag[1]]
-            rs_a[bidx, P : P + len(rc)] = rc
-            qlens_a[bidx] = len(qc)
-            # clamp band start: diagonals from "whole query before ref" to
-            # "band starts at the last ref base"
-            dlos_a[bidx] = int(
-                np.clip(diag - W // 2, -(lq - 1), max(len(rc) - 1, 0))
-            )
+        with TIMER.span("align.pack"):
+            lr_max = max(len(self.ref_codes[j[0][1]]) for j in batch)
+            P = W + lq  # real-ref offset inside the padded buffer
+            # the band reads reference bytes up to index lr + 2W + 2lq - 3
+            rlen = lr_max + 2 * W + 2 * lq
+            B = len(batch)
+            qs_a = np.full((B, lq), 4, dtype=np.uint8)
+            rs_a = np.full((B, rlen), 4, dtype=np.uint8)
+            qlens_a = np.empty(B, np.int32)
+            dlos_a = np.empty(B, np.int32)
+            for bidx, (tag, strand, qseq, diag) in enumerate(batch):
+                qc = encode_dna(qseq)
+                qs_a[bidx, : len(qc)] = qc
+                rc = self.ref_codes[tag[1]]
+                rs_a[bidx, P : P + len(rc)] = rc
+                qlens_a[bidx] = len(qc)
+                # clamp band start: diagonals from "whole query before ref" to
+                # "band starts at the last ref base"
+                dlos_a[bidx] = int(
+                    np.clip(diag - W // 2, -(lq - 1), max(len(rc) - 1, 0))
+                )
         dev = self.device
-        packed, n_steps, q0s, r0s, best, bi, bw = (
-            t.cpu().numpy()
-            for t in sw_cigar(
-                torch.from_numpy(qs_a).to(dev), torch.from_numpy(rs_a).to(dev),
-                torch.from_numpy(qlens_a).to(dev), torch.from_numpy(dlos_a).to(dev),
-                W,
+        with TIMER.span("align.kernels"):
+            packed, n_steps, q0s, r0s, best, bi, bw = (
+                t.cpu().numpy()
+                for t in sw_cigar(
+                    torch.from_numpy(qs_a).to(dev), torch.from_numpy(rs_a).to(dev),
+                    torch.from_numpy(qlens_a).to(dev), torch.from_numpy(dlos_a).to(dev),
+                    W,
+                )
             )
-        )
-        for bidx, (tag, strand, qseq, _diag) in enumerate(batch):
-            if bi[bidx] < 0 or best[bidx] <= 0:
-                continue
-            cigar = _unpack_cigar(packed[bidx], int(n_steps[bidx]))
-            if not cigar:
-                continue
-            aln = Alignment(
-                q_start=int(q0s[bidx]),
-                q_end=int(bi[bidx]) + 1,
-                r_start=int(r0s[bidx]),
-                r_end=int(bi[bidx]) + int(dlos_a[bidx]) + int(bw[bidx]) + 1,
-                score=int(best[bidx]),
-                cigar=cigar,
-                q_len=len(qseq),
-                r_len=len(self.ref_codes[tag[1]]),
-            )
-            out.append((tag, strand, qseq, aln))
-
+            TIMER.count("launches")
+            TIMER.count("jobs", B)
+            TIMER.count("live_cells", int(qlens_a.sum()) * W)
+            TIMER.count("tb_steps", int(n_steps.sum()))
+        with TIMER.span("align.unpack"):
+            for bidx, (tag, strand, qseq, _diag) in enumerate(batch):
+                if bi[bidx] < 0 or best[bidx] <= 0:
+                    continue
+                cigar = _unpack_cigar(packed[bidx], int(n_steps[bidx]))
+                if not cigar:
+                    continue
+                aln = Alignment(
+                    q_start=int(q0s[bidx]),
+                    q_end=int(bi[bidx]) + 1,
+                    r_start=int(r0s[bidx]),
+                    r_end=int(bi[bidx]) + int(dlos_a[bidx]) + int(bw[bidx]) + 1,
+                    score=int(best[bidx]),
+                    cigar=cigar,
+                    q_len=len(qseq),
+                    r_len=len(self.ref_codes[tag[1]]),
+                )
+                out.append((tag, strand, qseq, aln))
 
     def map_reads(self, reads: dict[str, str], min_seeds: int = 2, ref_subsets=None):
         """Map many reads in shared batched kernel launches; returns
@@ -672,22 +674,31 @@ class Aligner:
         restricts each read to {read_id: [ref names]} (used to batch many
         independent per-cluster mapping problems into one launch set)."""
         jobs = []
-        for rid, seq in reads.items():
-            allowed = None if ref_subsets is None else ref_subsets.get(rid)
-            jobs.extend(self._jobs_for(rid, seq, min_seeds, allowed))
-        raw: dict = {}
-        for (rid, name), strand, _qseq, aln in self._run_jobs(jobs):
-            raw.setdefault((rid, name, strand), []).append(aln)
-        results: dict = {}
-        for (rid, name, strand), alns in raw.items():
-            pieces = []
-            for a in alns:
-                pieces.extend(_zdrop_split(a))
-            if not pieces:
-                continue
-            best = _stitch_pieces(pieces) if len(pieces) > 1 else pieces[0]
-            per_read = results.setdefault(rid, {})
-            prev = per_read.get(name)
-            if prev is None or best.score > prev[1].score:
-                per_read[name] = (strand, best)
+        with TIMER.span("align.seed"):
+            for rid, seq in reads.items():
+                allowed = None if ref_subsets is None else ref_subsets.get(rid)
+                jobs.extend(self._jobs_for(rid, seq, min_seeds, allowed))
+        return self._best_per_read(self._run_jobs(jobs))
+
+    @staticmethod
+    def _best_per_read(aligned):
+        """{read_id: {ref: (strand, Alignment)}} from the batches' output:
+        each (read, ref, strand)'s pieces z-drop split and stitched, and the
+        best-scoring strand kept."""
+        with TIMER.span("align.stitch"):
+            raw: dict = {}
+            for (rid, name), strand, _qseq, aln in aligned:
+                raw.setdefault((rid, name, strand), []).append(aln)
+            results: dict = {}
+            for (rid, name, strand), alns in raw.items():
+                pieces = []
+                for a in alns:
+                    pieces.extend(_zdrop_split(a))
+                if not pieces:
+                    continue
+                best = _stitch_pieces(pieces) if len(pieces) > 1 else pieces[0]
+                per_read = results.setdefault(rid, {})
+                prev = per_read.get(name)
+                if prev is None or best.score > prev[1].score:
+                    per_read[name] = (strand, best)
         return results

@@ -22,10 +22,11 @@ with `torch.cummax` for the deletion recurrences, and a vectorised walk. The
 wrappers use the plain versions only for tensors on the CPU; for CUDA
 tensors they launch the kernels, with the tensors' device current and on
 its current stream (`_launch`), or raise. `LAUNCHES` counts kernel launches
-and `DP_SHAPES` counts sw_dp launches by (B, Lq, W), over the process;
-`thread_launches()` counts the calling thread's; `traceback_restages()`
-reads the traceback kernel's count of re-stages (tiles it had to stage and
-wait for because a walk left the window of lanes it was reading).
+and `DP_SHAPES` counts sw_dp launches by (B, Lq, W), over the process (the
+aligner's `align.kernels` spans count each isolate's own launches and their
+work); `traceback_restages()` reads the traceback kernel's count of
+re-stages (tiles it had to stage and wait for because a walk left the
+window of lanes it was reading).
 """
 
 from __future__ import annotations
@@ -55,15 +56,10 @@ _SRC = os.path.join(PACKAGE_DIR, "csrc", "sw_batch.cu")
 
 # kernel launches by the wrappers below (never by the plain versions), and
 # sw_dp launches by (B, Lq, W): over the process, so a batch's isolates sum
-# here; thread_launches() gives the calling thread's own
+# here
 LAUNCHES = {"sw_dp": 0, "sw_traceback": 0}
 DP_SHAPES: collections.Counter = collections.Counter()
 _count_lock = threading.Lock()
-_thread_counts = threading.local()
-
-
-def _own_launches() -> dict:
-    return _thread_counts.__dict__.setdefault("launches", {"sw_dp": 0, "sw_traceback": 0})
 
 
 def _count_launch(name: str, dp_shape=None):
@@ -71,17 +67,6 @@ def _count_launch(name: str, dp_shape=None):
         LAUNCHES[name] += 1
         if dp_shape is not None:
             DP_SHAPES[dp_shape] += 1
-    _own_launches()[name] += 1
-
-
-def thread_launches(reset: bool = False) -> dict:
-    """The calling thread's kernel launches, by kernel, since its first
-    launch or its last reset (a batch runs each isolate in one thread)."""
-    own = _own_launches()
-    out = dict(own)
-    if reset:
-        own.update(sw_dp=0, sw_traceback=0)
-    return out
 
 
 # band widths both kernels are instantiated for (W = 32 * S band lanes, S per

@@ -119,12 +119,15 @@ def build_and_correct_graph(
 ):
     """k=3 pre-clean + k selection + iterative bubble popping
     (__main__.py:337-414)."""
-    graph = build_graph(new_annotatedReads, 3, new_gene_position_dict, vocab, cache, device)
-    short_reads.update(graph.get_short_read_annotations())
-    short_read_gene_positions.update(graph.get_short_read_gene_positions())
-    graph.remove_low_coverage_components(5)
-    graph.filter_graph(node_min_coverage, 1)
-    new_annotatedReads, new_gene_position_dict = graph.correct_reads(fastq_content)
+    with TIMER.span("clean.build"):
+        graph = build_graph(new_annotatedReads, 3, new_gene_position_dict, vocab, cache, device)
+    with TIMER.span("clean.short_reads"):
+        short_reads.update(graph.get_short_read_annotations())
+        short_read_gene_positions.update(graph.get_short_read_gene_positions())
+    with TIMER.span("clean.filter_correct"):
+        graph.remove_low_coverage_components(5)
+        graph.filter_graph(node_min_coverage, 1)
+        new_annotatedReads, new_gene_position_dict = graph.correct_reads(fastq_content)
     if debug:
         write_pandora_gene_calls(
             output_dir,
@@ -133,26 +136,30 @@ def build_and_correct_graph(
             os.path.join(output_dir, "mid_correction_gene_calls.json"),
             os.path.join(output_dir, "mid_correction_gene_positions.json"),
         )
-    graph = build_graph(new_annotatedReads, 3, new_gene_position_dict, vocab, cache, device)
-    short_reads.update(graph.get_short_read_annotations())
-    short_read_gene_positions.update(graph.get_short_read_gene_positions())
-    graph.filter_graph(node_min_coverage, 1)
-    new_annotatedReads = graph.get_valid_reads_only()
+    with TIMER.span("clean.build"):
+        graph = build_graph(new_annotatedReads, 3, new_gene_position_dict, vocab, cache, device)
+    with TIMER.span("clean.short_reads"):
+        short_reads.update(graph.get_short_read_annotations())
+        short_read_gene_positions.update(graph.get_short_read_gene_positions())
+    with TIMER.span("clean.filter_correct"):
+        graph.filter_graph(node_min_coverage, 1)
+        new_annotatedReads = graph.get_valid_reads_only()
     if len(new_annotatedReads) == 0:
         write_empty_result(output_dir)
         sys.exit(0)
     if not quiet:
         sys.stderr.write("\namira-tpu: selecting a gene-mer size (k).\n")
-    geneMer_size = choose_kmer_size(
-        overall_mean_node_coverages[3],
-        new_annotatedReads,
-        cores,
-        new_gene_position_dict,
-        sample_genesOfInterest,
-        vocab,
-        cache,
-        device,
-    )
+    with TIMER.span("clean.kmer_size"):
+        geneMer_size = choose_kmer_size(
+            overall_mean_node_coverages[3],
+            new_annotatedReads,
+            cores,
+            new_gene_position_dict,
+            sample_genesOfInterest,
+            vocab,
+            cache,
+            device,
+        )
     overall_mean_node_coverage = overall_mean_node_coverages[geneMer_size]
     if not quiet:
         sys.stderr.write(f"\namira-tpu: selected k={geneMer_size}.\n")
@@ -188,48 +195,65 @@ def build_and_correct_graph(
 
 def run_pipeline(args) -> None:
     """The full pipeline (reference main(), __main__.py:417-804) on
-    `args.device`."""
+    `args.device`. Every step from `TIMER.reset` to `TIMER.finish` lies in
+    one top-level phase; each write of an output is a `write_outputs`
+    phase of its own, named by its `output`."""
     start_time = time.time()
     device = resolve_device(getattr(args, "device", "cuda"))
     TIMER.reset(device)
     import random
 
-    random.seed(args.seed)
-    os.makedirs(args.output_dir, exist_ok=True)
-    AMR_gene_reference_FASTA, sequence_names, core_genes, plasmid_genes = (
-        load_species_specific_files(
-            args.species, args.amr_fasta, args.amr_calls, args.core_genes,
-            args.plasmid_genes,
+    with phase("reference_setup"):
+        random.seed(args.seed)
+        os.makedirs(args.output_dir, exist_ok=True)
+        AMR_gene_reference_FASTA, sequence_names, core_genes, plasmid_genes = (
+            load_species_specific_files(
+                args.species, args.amr_fasta, args.amr_calls, args.core_genes,
+                args.plasmid_genes,
+            )
         )
-    )
-    reference_alleles, genesOfInterest = process_reference_alleles(
-        AMR_gene_reference_FASTA, args.promoters
-    )
+        reference_alleles, genesOfInterest = process_reference_alleles(
+            AMR_gene_reference_FASTA, args.promoters
+        )
+        vocab = GeneVocab()
+        build_cache = GraphBuildCache(device)
+        # The initial and final builds are distributed by default when two or
+        # more devices of --device's type are visible (the graph is identical
+        # to the single-device build's; tests/test_torch_distgraph.py pins the
+        # TSV); --no-dist-build opts out, and one device builds alone.
+        dist_devices = (
+            visible_devices(device.type) if args.dist_build is not False else []
+        )
+        use_dist = len(dist_devices) >= 2
     if args.reads is not None:
         if not args.quiet:
             sys.stderr.write("\namira-tpu: loading FASTQ file.\n")
         with phase("load_fastq"):
             fastq_content = parse_fastq(args.reads)
-        read_fastq_path, fastq_content = write_modified_fastq(
-            fastq_content, args.reads, args.output_dir
-        )
+        with phase("write_outputs", output="reads_fastq_gz"):
+            read_fastq_path, fastq_content = write_modified_fastq(
+                fastq_content, args.reads, args.output_dir
+            )
     else:
         if not args.quiet:
             sys.stderr.write("\namira-tpu: loading FASTA file.\n")
-        fastq_content = parse_fasta(args.assembly)
+        with phase("load_assembly"):
+            fastq_content = parse_fasta(args.assembly)
         read_fastq_path = os.path.join(args.output_dir, "assembly.fq.gz")
-        write_fastq(read_fastq_path, fastq_content)
+        with phase("write_outputs", output="assembly_fastq_gz"):
+            write_fastq(read_fastq_path, fastq_content)
 
     pandoraSam = args.pandoraSam
     pandoraConsensus = args.pandoraConsensus
     if pandoraSam is None and args.pandoraJSON is None:
         if not args.quiet:
             sys.stderr.write("\namira-tpu: running Pandora map.\n")
-        pandoraSam, pandoraConsensus = run_pandora_map(
-            args.pandora_path, args.panRG_path, read_fastq_path,
-            args.output_dir, args.cores, args.seed, args.assembly,
-            args.species, args.meta,
-        )
+        with phase("pandora_map"):
+            pandoraSam, pandoraConsensus = run_pandora_map(
+                args.pandora_path, args.panRG_path, read_fastq_path,
+                args.output_dir, args.cores, args.seed, args.assembly,
+                args.species, args.meta,
+            )
 
     with phase("ingest_gene_calls"):
         if args.pandoraJSON:
@@ -284,18 +308,8 @@ def run_pipeline(args) -> None:
         write_empty_result(args.output_dir)
         sys.exit(0)
     if args.debug:
-        plot_read_length_distribution(annotatedReads, args.output_dir)
-
-    vocab = GeneVocab()
-    build_cache = GraphBuildCache(device)
-    # The initial and final builds are distributed by default when two or
-    # more devices of --device's type are visible (the graph is identical to
-    # the single-device build's; tests/test_torch_distgraph.py pins the
-    # TSV); --no-dist-build opts out, and one device builds alone.
-    dist_devices = (
-        visible_devices(device.type) if args.dist_build is not False else []
-    )
-    use_dist = len(dist_devices) >= 2
+        with phase("write_outputs", output="read_length_plot"):
+            plot_read_length_distribution(annotatedReads, args.output_dir)
 
     def _initial_or_final_build(reads_d, kk, pos_d):
         if use_dist:
@@ -308,43 +322,49 @@ def run_pipeline(args) -> None:
         sys.stderr.write("\namira-tpu: building initial gene-mer graph.\n")
     with phase("initial_graph_build", items=len(annotatedReads), unit="reads"):
         graph = _initial_or_final_build(annotatedReads, 3, gene_position_dict)
-    if args.debug:
-        for node in graph.all_nodes():
-            graph.color_node(node, sample_genesOfInterest)
-        graph.generate_gml(
-            os.path.join(args.output_dir, "pre_correction_gene_mer_graph"),
-            3, 1, 1,
-        )
-        graph.get_unitigs_in_graph(
-            os.path.join(args.output_dir, "pre_correction_unitigs.txt")
-        )
-    overall_mean_node_coverages = get_overall_mean_node_coverages(graph)
-    short_reads = graph.get_short_read_annotations()
-    short_read_gene_positions = graph.get_short_read_gene_positions()
-    if not args.no_trim:
-        graph.remove_non_AMR_associated_nodes(sample_genesOfInterest)
-        new_annotatedReads, new_gene_position_dict = graph.correct_reads(
-            fastq_content
-        )
-        graph = build_graph(new_annotatedReads, 3, new_gene_position_dict, vocab, build_cache)
-    else:
-        new_annotatedReads = dict(annotatedReads)
-        new_gene_position_dict = dict(gene_position_dict)
-    try:
-        min_path_coverage = estimate_min_path_coverage(
-            graph.get_all_node_coverages(),
-            os.path.join(args.output_dir, "initial_node_coverages.png")
-            if args.debug
-            else None,
-        )
-    except (ValueError, IndexError):
-        min_path_coverage = 10
-    node_min_coverage = args.node_min_coverage
-    if args.reads is not None and args.meta is False:
-        graph.filter_graph(2, 1)
-        new_annotatedReads, new_gene_position_dict, _rej, _rejp = (
-            graph.remove_junk_reads(0.80)
-        )
+    with phase("graph_trim"):
+        if args.debug:
+            for node in graph.all_nodes():
+                graph.color_node(node, sample_genesOfInterest)
+            graph.generate_gml(
+                os.path.join(args.output_dir, "pre_correction_gene_mer_graph"),
+                3, 1, 1,
+            )
+            graph.get_unitigs_in_graph(
+                os.path.join(args.output_dir, "pre_correction_unitigs.txt")
+            )
+        with TIMER.span("trim.coverages"):
+            overall_mean_node_coverages = get_overall_mean_node_coverages(graph)
+            short_reads = graph.get_short_read_annotations()
+            short_read_gene_positions = graph.get_short_read_gene_positions()
+        if not args.no_trim:
+            with TIMER.span("trim.correct"):
+                graph.remove_non_AMR_associated_nodes(sample_genesOfInterest)
+                new_annotatedReads, new_gene_position_dict = graph.correct_reads(
+                    fastq_content
+                )
+            with TIMER.span("trim.rebuild"):
+                graph = build_graph(new_annotatedReads, 3, new_gene_position_dict, vocab, build_cache)
+        else:
+            new_annotatedReads = dict(annotatedReads)
+            new_gene_position_dict = dict(gene_position_dict)
+        with TIMER.span("trim.min_coverage"):
+            try:
+                min_path_coverage = estimate_min_path_coverage(
+                    graph.get_all_node_coverages(),
+                    os.path.join(args.output_dir, "initial_node_coverages.png")
+                    if args.debug
+                    else None,
+                )
+            except (ValueError, IndexError):
+                min_path_coverage = 10
+        node_min_coverage = args.node_min_coverage
+        if args.reads is not None and args.meta is False:
+            with TIMER.span("trim.junk_reads"):
+                graph.filter_graph(2, 1)
+                new_annotatedReads, new_gene_position_dict, _rej, _rejp = (
+                    graph.remove_junk_reads(0.80)
+                )
     if not args.quiet:
         sys.stderr.write(
             "\namira-tpu: removing low coverage components and nodes with "
@@ -384,33 +404,37 @@ def run_pipeline(args) -> None:
         graph = _initial_or_final_build(
             new_annotatedReads, geneMer_size, new_gene_position_dict
         )
-    write_pandora_gene_calls(
-        args.output_dir,
-        new_gene_position_dict,
-        new_annotatedReads,
-        os.path.join(args.output_dir, "corrected_gene_calls.json"),
-        os.path.join(args.output_dir, "corrected_gene_positions.json"),
-    )
-    short_reads.update(graph.get_short_read_annotations())
-    short_read_gene_positions.update(graph.get_short_read_gene_positions())
-    if args.reads is not None:
-        graph.remove_low_coverage_components(5)
-    if args.debug:
-        for node in graph.all_nodes():
-            graph.color_node(node, sample_genesOfInterest)
-        graph.get_unitigs_in_graph(
-            os.path.join(args.output_dir, "post_correction_unitigs.txt")
+    with phase("write_outputs", output="corrected_gene_calls"):
+        write_pandora_gene_calls(
+            args.output_dir,
+            new_gene_position_dict,
+            new_annotatedReads,
+            os.path.join(args.output_dir, "corrected_gene_calls.json"),
+            os.path.join(args.output_dir, "corrected_gene_positions.json"),
         )
+    with phase("graph_prune"):
+        short_reads.update(graph.get_short_read_annotations())
+        short_read_gene_positions.update(graph.get_short_read_gene_positions())
+        if args.reads is not None:
+            graph.remove_low_coverage_components(5)
+        if args.debug:
+            for node in graph.all_nodes():
+                graph.color_node(node, sample_genesOfInterest)
+            graph.get_unitigs_in_graph(
+                os.path.join(args.output_dir, "post_correction_unitigs.txt")
+            )
     if not args.quiet:
         sys.stderr.write("\namira-tpu: writing gene-mer graph.\n")
-    graph.generate_gml(
-        os.path.join(args.output_dir, "gene_mer_graph"),
-        geneMer_size,
-        node_min_coverage,
-        1,
-    )
+    with phase("write_outputs", output="gene_mer_graph"):
+        graph.generate_gml(
+            os.path.join(args.output_dir, "gene_mer_graph"),
+            geneMer_size,
+            node_min_coverage,
+            1,
+        )
     if args.output_components is True:
-        output_component_fastqs(args.output_dir, graph, fastq_content)
+        with phase("write_outputs", output="component_fastqs"):
+            output_component_fastqs(args.output_dir, graph, fastq_content)
     if not args.quiet:
         sys.stderr.write("\namira-tpu: clustering reads.\n")
     with phase("path_clustering", items=len(sample_genesOfInterest), unit="genes"):
@@ -422,35 +446,37 @@ def run_pipeline(args) -> None:
             short_read_gene_positions,
             overall_mean_node_coverage,
         )
-    os.makedirs(os.path.join(args.output_dir, "AMR_allele_fastqs"), exist_ok=True)
     if not args.quiet:
         sys.stderr.write("\namira-tpu: writing fastqs.\n")
-    (
-        longest_reads_for_genes,
-        supplemented_clusters,
-        allele_component_mapping,
-        files_to_assemble,
-    ) = write_fastqs_for_genes(
-        clusters_of_interest, overall_mean_node_coverage, fastq_content,
-        args.output_dir,
-    )
-    longest_reads_for_genes, files_to_assemble = (
-        write_fastqs_for_genes_with_short_reads(
-            clusters_to_add,
-            overall_mean_node_coverage,
+    with phase("write_outputs", output="allele_fastqs"):
+        os.makedirs(os.path.join(args.output_dir, "AMR_allele_fastqs"), exist_ok=True)
+        (
             longest_reads_for_genes,
-            args.output_dir,
-            files_to_assemble,
-            fastq_content,
             supplemented_clusters,
             allele_component_mapping,
+            files_to_assemble,
+        ) = write_fastqs_for_genes(
+            clusters_of_interest, overall_mean_node_coverage, fastq_content,
+            args.output_dir,
         )
-    )
-    longest_read_lengths = {}
-    for row in longest_reads_for_genes:
-        longest_read_lengths[row.split("\n")[0].replace(">", "")] = len(
-            "".join(row.split("\n")[1:])
+    with phase("write_outputs", output="allele_fastqs_short_reads"):
+        longest_reads_for_genes, files_to_assemble = (
+            write_fastqs_for_genes_with_short_reads(
+                clusters_to_add,
+                overall_mean_node_coverage,
+                longest_reads_for_genes,
+                args.output_dir,
+                files_to_assemble,
+                fastq_content,
+                supplemented_clusters,
+                allele_component_mapping,
+            )
         )
+        longest_read_lengths = {}
+        for row in longest_reads_for_genes:
+            longest_read_lengths[row.split("\n")[0].replace(">", "")] = len(
+                "".join(row.split("\n")[1:])
+            )
     if not args.quiet:
         sys.stderr.write("\namira-tpu: obtaining nucleotide sequences.\n")
     with phase(
@@ -493,45 +519,48 @@ def run_pipeline(args) -> None:
     if args.assemble_paths is True:
         from .assembly import assemble_full_length_paths
 
-        assemble_full_length_paths(args.output_dir, args.cores, device=device)
-    result_df = supplement_result_df(
-        result_df, copy_numbers, mean_depth_per_reference, longest_read_lengths,
-        args.debug,
-    )
-    if args.output_components is True:
-        result_df.set_column(
-            "Component ID",
-            [allele_component_mapping[a] for a in result_df.column("Amira allele")],
-        )
-    result_df = filter_results(
-        result_df,
-        args.min_relative_depth,
-        supplemented_clusters,
-        annotatedReads,
-        sample_genesOfInterest,
-        args.identity,
-        args.coverage,
-        mean_read_depth,
-        plasmid_genes,
-        args.meta,
-    )
-    if args.promoters:
-        from .promoters import genotype_promoters
-
-        result_df = genotype_promoters(
-            result_df,
-            reference_alleles,
-            os.path.join(args.output_dir, "AMR_allele_fastqs"),
-            sequence_names,
-            fastq_content,
+        with phase("path_assembly"):
+            assemble_full_length_paths(args.output_dir, args.cores, device=device)
+    with phase("result_table"):
+        result_df = supplement_result_df(
+            result_df, copy_numbers, mean_depth_per_reference, longest_read_lengths,
             args.debug,
-            args.output_components,
-            device=device,
         )
-    if args.debug:
-        write_reads_per_AMR_gene(args.output_dir, supplemented_clusters)
-    result_df = result_df.sort_by("Determinant name")
-    result_df.write_tsv(os.path.join(args.output_dir, "amira_results.tsv"))
+        if args.output_components is True:
+            result_df.set_column(
+                "Component ID",
+                [allele_component_mapping[a] for a in result_df.column("Amira allele")],
+            )
+        result_df = filter_results(
+            result_df,
+            args.min_relative_depth,
+            supplemented_clusters,
+            annotatedReads,
+            sample_genesOfInterest,
+            args.identity,
+            args.coverage,
+            mean_read_depth,
+            plasmid_genes,
+            args.meta,
+        )
+        if args.promoters:
+            from .promoters import genotype_promoters
+
+            result_df = genotype_promoters(
+                result_df,
+                reference_alleles,
+                os.path.join(args.output_dir, "AMR_allele_fastqs"),
+                sequence_names,
+                fastq_content,
+                args.debug,
+                args.output_components,
+                device=device,
+            )
+        if args.debug:
+            write_reads_per_AMR_gene(args.output_dir, supplemented_clusters)
+        result_df = result_df.sort_by("Determinant name")
+    with phase("write_outputs", output="amira_results_tsv"):
+        result_df.write_tsv(os.path.join(args.output_dir, "amira_results.tsv"))
     TIMER.finish(args.output_dir, args.quiet)
     if not args.quiet:
         sys.stderr.write(

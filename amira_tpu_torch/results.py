@@ -34,6 +34,7 @@ from .ops.kmer import (
     estimate_depth_for_reads,
     estimate_overall_read_depth,
 )
+from .tracing import TIMER
 
 
 # ----------------------------------------------------------- cluster plumbing
@@ -770,55 +771,47 @@ def estimate_copy_numbers(
     *, device,
 ):
     """k-mer-depth copy numbers per allele path
-    (result_utils.py:1089-1159), via the on-device k-mer engine."""
-    import time as _time
-
-    t_start = _time.time()
-    outdir = os.path.join(output_dir, "AMR_allele_fastqs", "path_reads")
-    os.makedirs(outdir, exist_ok=True)
-    path_mapping: dict = {}
-    path_list = list(path_reads.keys())
-    for i, path in enumerate(path_list):
-        path_mapping[i + 1] = list(path)
-        write_path_fastq(path_reads[path], fastq_content, outdir, i + 1)
-    with open(os.path.join(outdir, "path_id_mapping.json"), "w") as o:
-        o.write(json.dumps(path_mapping))
-    t0 = _time.time()
-    all_seqs = [v["sequence"] for v in fastq_content.values()]
-    read_depth, counter = estimate_overall_read_depth(all_seqs, k, device=device)
-    t1 = _time.time()
+    (result_utils.py:1089-1159), via the on-device k-mer engine; spans
+    `copy_number.path_fastqs`, `copy_number.count` and
+    `copy_number.queries`."""
+    with TIMER.span("copy_number.path_fastqs"):
+        outdir = os.path.join(output_dir, "AMR_allele_fastqs", "path_reads")
+        os.makedirs(outdir, exist_ok=True)
+        path_mapping: dict = {}
+        path_list = list(path_reads.keys())
+        for i, path in enumerate(path_list):
+            path_mapping[i + 1] = list(path)
+            write_path_fastq(path_reads[path], fastq_content, outdir, i + 1)
+        with open(os.path.join(outdir, "path_id_mapping.json"), "w") as o:
+            o.write(json.dumps(path_mapping))
+    with TIMER.span("copy_number.count"):
+        all_seqs = [v["sequence"] for v in fastq_content.values()]
+        read_depth, counter = estimate_overall_read_depth(all_seqs, k, device=device)
     sys.stderr.write(f"\namira-tpu: estimated k-mer depth = {read_depth}.\n")
-    sys.stderr.write(
-        f"\namira-tpu: copy-number stages: path_fastqs={t0 - t_start:.1f}s"
-        f" count+cutoff+histo={t1 - t0:.1f}s"
-    )
-    gene_counts: dict = {}
-    for i, path in path_mapping.items():
-        gene_counts[i] = {}
-        for g in path:
-            strandless = g[1:]
-            if strandless in amira_alleles:
-                gene = "_".join(strandless.split("_")[:-1])
-                gene_counts[i][gene] = gene_counts[i].get(gene, 0) + 1
-    t2 = _time.time()
-    normalised_depths: dict = {}
-    mean_depth_per_reference: dict = {}
-    for path_id, path in path_mapping.items():
-        reads = path_reads[path_list[path_id - 1]]
-        seqs = [fastq_content[r]["sequence"] for r in reads]
-        depth_estimate = estimate_depth_for_reads(counter, seqs)
-        for g in path:
-            allele_name = g[1:]
-            if allele_name not in amira_alleles:
-                continue
-            gene = "_".join(allele_name.split("_")[:-1])
-            normalised_depths[allele_name] = depth_estimate / (
-                read_depth * gene_counts[path_id][gene]
-            )
-            mean_depth_per_reference[allele_name] = depth_estimate / read_depth
-    sys.stderr.write(
-        f" per_path_queries={_time.time() - t2:.1f}s\n"
-    )
+    with TIMER.span("copy_number.queries"):
+        gene_counts: dict = {}
+        for i, path in path_mapping.items():
+            gene_counts[i] = {}
+            for g in path:
+                strandless = g[1:]
+                if strandless in amira_alleles:
+                    gene = "_".join(strandless.split("_")[:-1])
+                    gene_counts[i][gene] = gene_counts[i].get(gene, 0) + 1
+        normalised_depths: dict = {}
+        mean_depth_per_reference: dict = {}
+        for path_id, path in path_mapping.items():
+            reads = path_reads[path_list[path_id - 1]]
+            seqs = [fastq_content[r]["sequence"] for r in reads]
+            depth_estimate = estimate_depth_for_reads(counter, seqs)
+            for g in path:
+                allele_name = g[1:]
+                if allele_name not in amira_alleles:
+                    continue
+                gene = "_".join(allele_name.split("_")[:-1])
+                normalised_depths[allele_name] = depth_estimate / (
+                    read_depth * gene_counts[path_id][gene]
+                )
+                mean_depth_per_reference[allele_name] = depth_estimate / read_depth
     return normalised_depths, mean_depth_per_reference
 
 

@@ -260,6 +260,33 @@ def read_rows(out: str) -> list[dict]:
         return list(csv.DictReader(f, delimiter="\t"))
 
 
+def phase_seconds(phases) -> dict:
+    """Seconds by phase name, in the order the names first ended (a phase
+    entered more than once, as `write_outputs`, is summed)."""
+    out: dict = {}
+    for p in phases:
+        out[p["phase"]] = out.get(p["phase"], 0.0) + p["seconds"]
+    return out
+
+
+def cleaning_stages(phases) -> dict | None:
+    """Seconds of the `graph_cleaning` phase's `clean.*` spans by name, and
+    the `clean.bubbles` spans' counters as `clean.bubbles.<counter>`; None
+    without the phase."""
+    stages = None
+    for p in phases:
+        if p["phase"] != "graph_cleaning":
+            continue
+        stages = stages or {}
+        for s in p.get("spans", []):
+            stages[s["span"]] = stages.get(s["span"], 0.0) + s["seconds"]
+            if s["span"] == "clean.bubbles":
+                for k, v in s.get("counters", {}).items():
+                    key = f"clean.bubbles.{k}"
+                    stages[key] = stages.get(key, 0.0) + v
+    return stages
+
+
 def _report(args, files, summary, phases) -> str:
     rows = []
     phase_total = sum(p["seconds"] for p in phases)
@@ -377,10 +404,8 @@ def main(argv=None) -> dict:
                                "Identity (%)", "Approximate cellular copy number")}
             for r in rows
         ],
-        "phases": {p["phase"]: p["seconds"] for p in phases},
-        "cleaning_stages": next(
-            (p.get("stages") for p in phases if p["phase"] == "graph_cleaning"), None
-        ),
+        "phases": phase_seconds(phases),
+        "cleaning_stages": cleaning_stages(phases),
         "commit": commit(),
         "fastq_sha256": files["fastq_sha256"],
         "fastq_bytes": fastq_bytes,

@@ -1,0 +1,10 @@
+"""qc_kernel_wait_s: the mean seconds an isolate of the window spends in the
+aligner's "align.kernels" spans (the SW launches, copies and the host
+waiting for the card) under its "ingest_gene_calls" phase, the consensus
+QC, from its phase_timings.json."""
+
+from spans import span_seconds
+
+
+def read(run):
+    return span_seconds(run, "ingest_gene_calls", ("align.kernels",))

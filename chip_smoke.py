@@ -1019,52 +1019,49 @@ def time_seeding(consensus, fastq, n, device):
     return 1e3 * loop_s / len(reads), 1e3 * index_s / len(reads), n_jobs
 
 
+def span_sums(entries):
+    """{span name: [seconds, {counter: total}]} summed over every span, at
+    any depth, under the given `phase_timings.json` entries."""
+    sums = {}
+
+    def walk(entry):
+        for span in entry.get("spans", []):
+            total = sums.setdefault(span["span"], [0.0, {}])
+            total[0] += span["seconds"]
+            for key, n in span.get("counters", {}).items():
+                total[1][key] = total[1].get(key, 0) + n
+            walk(span)
+
+    for entry in entries:
+        walk(entry)
+    return sums
+
+
+def align_kernel_counters(outdir):
+    """The `align.kernels` counters (`launches`: one sw_dp and one
+    sw_traceback launch each, `jobs`, `live_cells`, `tb_steps`) summed over
+    every phase of the run written to `outdir`."""
+    with open(os.path.join(outdir, "phase_timings.json")) as f:
+        return span_sums(json.load(f)).get("align.kernels", [0.0, {}])[1]
+
+
 def run_sam_route(files, n_reads, device):
     """Phase 5b: the SAM route (pandora SAM + consensus) on the first
     n_reads reads of the phase-4 isolate with --device cuda. Its consensus
-    QC aligns every read against every consensus gene: this phase times the
-    QC's seeding (`Aligner._jobs_for`) and alignment (`Aligner._run_jobs`)
-    apart, counts its jobs and kernel launches, and sums the kernel
-    wrappers' spans on the stream over the run (`KernelClock`). The result must hold phase 4's rows and the QC must
-    have launched both kernels."""
+    QC aligns every read against every consensus gene: this phase reads the
+    QC's spans from `phase_timings.json` (`ingest_gene_calls`: seeding,
+    host alignment, kernel wait, as the benchmark's `qc_*` metrics read
+    them) and its `align.kernels` counters, and sums the kernel wrappers'
+    spans on the stream over the run (`KernelClock`). The result must hold
+    phase 4's rows and the QC must have launched both kernels."""
     import torch
 
-    from amira_tpu_torch import preprocess
     from amira_tpu_torch.ops import sw_batch
-    from amira_tpu_torch.ops.align import Aligner
 
     d = os.path.join(WORK, "sam")
     t0 = time.time()
     sam, consensus, fastq, n = write_sam_inputs(files, n_reads, os.path.join(d, "data"))
     print(f"phase 5b inputs: {n} reads, SAM and a consensus of {len(files['gene_seqs'])} genes written in {time.time() - t0:.1f} s (host, not timed below)")
-    qc = {"jobs": 0, "seeding_s": 0.0, "alignment_s": 0.0}
-    real_qc = preprocess.remove_poorly_mapped_genes
-    real_jobs_for, real_run_jobs = Aligner._jobs_for, Aligner._run_jobs
-
-    def jobs_for(self, *args, **kwargs):
-        t = time.time()
-        jobs = real_jobs_for(self, *args, **kwargs)
-        qc["seeding_s"] += time.time() - t
-        qc["jobs"] += len(jobs)
-        return jobs
-
-    def run_jobs(self, jobs):
-        t = time.time()
-        out = real_run_jobs(self, jobs)
-        torch.cuda.synchronize()
-        qc["alignment_s"] += time.time() - t
-        return out
-
-    def timed_qc(*args, **kwargs):
-        before = dict(sw_batch.LAUNCHES)
-        Aligner._jobs_for, Aligner._run_jobs = jobs_for, run_jobs
-        t = time.time()
-        try:
-            return real_qc(*args, **kwargs)
-        finally:
-            Aligner._jobs_for, Aligner._run_jobs = real_jobs_for, real_run_jobs
-            qc["seconds"] = time.time() - t
-            qc["launches"] = {k: sw_batch.LAUNCHES[k] - before[k] for k in before}
 
     argv = [
         "--pandoraSam", sam, "--pandoraConsensus", consensus, "--reads", fastq,
@@ -1078,15 +1075,11 @@ def run_sam_route(files, n_reads, device):
     sw_batch.DP_SHAPES.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    preprocess.remove_poorly_mapped_genes = timed_qc
     t0 = time.time()
-    try:
-        with KernelClock() as clock:
-            run_cli(argv)
-            torch.cuda.synchronize()
-            wall_s = time.time() - t0
-    finally:
-        preprocess.remove_poorly_mapped_genes = real_qc
+    with KernelClock() as clock:
+        run_cli(argv)
+        torch.cuda.synchronize()
+        wall_s = time.time() - t0
     span_ms = clock.ms()
     launches = dict(sw_batch.LAUNCHES)
     dp_shapes = sorted(
@@ -1099,14 +1092,27 @@ def run_sam_route(files, n_reads, device):
         phases = json.load(f)
     for p in phases:
         print(f"phase 5b timing: {p['phase']:<24s} {p['seconds']:9.3f} s")
+    qc_phases = [p for p in phases if p["phase"] == "ingest_gene_calls"]
+    spans = span_sums(qc_phases)
+    span_s = lambda *names: sum(spans.get(k, [0.0])[0] for k in names)  # noqa: E731
+    kernels = spans.get("align.kernels", [0.0, {}])[1]
+    qc = {
+        "seconds": sum(p["seconds"] for p in qc_phases),
+        "qc_seeding_s": span_s("align.seed"),
+        "qc_align_host_s": span_s("align.pack", "align.unpack", "align.stitch"),
+        "qc_kernel_wait_s": span_s("align.kernels"),
+        **{k: kernels.get(k, 0) for k in ("launches", "jobs", "live_cells", "tb_steps")},
+    }
     print(
         f"phase 5b SAM route: {n} reads, {wall_s:.1f} s wall ({1e3 * wall_s / n:.2f} ms per read), "
         f"peak device memory {peak} bytes ({peak / 2**30:.2f} GiB), launches {launches}"
     )
     print(
-        f"phase 5b consensus QC: {qc['seconds']:.1f} s, {qc['jobs']} jobs, seeding "
-        f"{qc['seeding_s']:.1f} s ({1e3 * qc['seeding_s'] / n:.2f} ms per read), alignment "
-        f"{qc['alignment_s']:.1f} s, kernel launches {qc['launches']}"
+        f"phase 5b consensus QC (ingest_gene_calls spans): phase {qc['seconds']:.1f} s, seeding "
+        f"{qc['qc_seeding_s']:.1f} s ({1e3 * qc['qc_seeding_s'] / n:.2f} ms per read), host "
+        f"alignment {qc['qc_align_host_s']:.1f} s, kernel wait {qc['qc_kernel_wait_s']:.1f} s; "
+        f"{qc['launches']} sw_cigar launches, {qc['jobs']} jobs, {qc['live_cells']} live cells, "
+        f"{qc['tb_steps']} traceback steps"
     )
     print(
         f"phase 5b kernel wrappers' spans on the stream over the run: sw_dp {span_ms['sw_dp']:.1f} ms, sw_traceback "
@@ -1121,7 +1127,7 @@ def run_sam_route(files, n_reads, device):
         f"genes {index_ms:.2f} ms per read"
     )
     qc["seeding_loop_ms_per_read"], qc["seeding_index_ms_per_read"] = loop_ms, index_ms
-    if not all(qc["launches"][k] > 0 for k in ("sw_dp", "sw_traceback")) or qc["jobs"] <= 0:
+    if qc["launches"] <= 0 or qc["jobs"] <= 0:
         fail(f"phase 5b: the consensus QC did not align on the card ({qc})")
     for name in ("gene_calls_with_gene_filtering.json", "gene_positions_with_gene_filtering.json"):
         if not os.path.exists(os.path.join(out, name)):
@@ -1288,8 +1294,8 @@ def run_batch_phase(files, scale_out, device):
     --device cuda, once per worker count in BATCH_WORKERS (workers > 1: one
     stream per worker thread on the one card). Every isolate's
     amira_results.tsv must equal phase 4's byte for byte and every isolate
-    must have launched both kernels (counted in its own thread:
-    `sw_batch.thread_launches`; `sw_batch.LAUNCHES` sums over the batch).
+    must have launched both kernels (its own `align.kernels` counters in
+    its `phase_timings.json`; `sw_batch.LAUNCHES` sums over the batch).
     Prints each run's wall, isolates per hour, peak device memory and the
     host's peak resident set."""
     import torch
@@ -1306,15 +1312,6 @@ def run_batch_phase(files, scale_out, device):
         "core-genes": files["core_genes"], "plasmid-genes": files["plasmid_genes"],
         "quiet": True,
     }
-    real_run_isolate = batch.run_isolate
-    own_launches = {}
-
-    def counted(argv, dev=None):
-        sw_batch.thread_launches(reset=True)
-        summary = real_run_isolate(argv, dev)
-        own_launches[summary["output"]] = sw_batch.thread_launches(reset=True)
-        return summary
-
     runs = {}
     for workers in BATCH_WORKERS:
         root = os.path.join(WORK, "batch", f"w{workers}")
@@ -1325,18 +1322,13 @@ def run_batch_phase(files, scale_out, device):
         for key in sw_batch.LAUNCHES:
             sw_batch.LAUNCHES[key] = 0
         sw_batch.DP_SHAPES.clear()
-        own_launches.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        batch.run_isolate = counted
-        try:
-            with RssPeak() as rss:
-                t0 = time.time()
-                summaries = batch.run_batch(manifest, workers=workers, quiet=True, device=device)
-                torch.cuda.synchronize()
-                wall_s = time.time() - t0
-        finally:
-            batch.run_isolate = real_run_isolate
+        with RssPeak() as rss:
+            t0 = time.time()
+            summaries = batch.run_batch(manifest, workers=workers, quiet=True, device=device)
+            torch.cuda.synchronize()
+            wall_s = time.time() - t0
         launches = dict(sw_batch.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         per_hour = 3600.0 * len(manifest) / wall_s
@@ -1356,8 +1348,11 @@ def run_batch_phase(files, scale_out, device):
             f"phase 6a phases (workers={workers}, mean s over isolates): "
             + ", ".join(f"{k} {v:.3f}" for k, v in phase_means.items())
         )
+        own_launches = {}
         for s in summaries:
-            mine = own_launches.get(s["output"], {})
+            mine = own_launches[s["output"]] = (
+                align_kernel_counters(s["output"]) if s["status"] == "ok" else {}
+            )
             print(
                 f"phase 6a isolate {os.path.basename(s['output'])} (workers={workers}): "
                 f"{s['status']}, {s['seconds']} s, launches {mine}"
@@ -1367,7 +1362,7 @@ def run_batch_phase(files, scale_out, device):
             with open(s["results_tsv"]) as f:
                 if f.read() != want:
                     fail(f"phase 6a: {s['results_tsv']} differs from phase 4's amira_results.tsv")
-            if not all(mine.get(k, 0) > 0 for k in ("sw_dp", "sw_traceback")):
+            if mine.get("launches", 0) <= 0:
                 fail(f"phase 6a: isolate {s['output']} did not launch both kernels ({mine})")
         runs[f"w{workers}"] = {
             "isolates": len(manifest), "workers": workers, "wall_seconds": wall_s,

@@ -7,7 +7,8 @@ with 70) runs through the JAX package's `run_batch`, the port's
 `run_batch` with one and with two workers, and the port's CLI one isolate
 at a time; every amira_results.tsv must equal the others byte for byte,
 and each isolate's phase_timings.json must hold its own phases (the names,
-order and item counts of its single run) and nothing else.
+outputs, order and item counts of its single run, and its own SW launches
+in the `align.kernels` spans' counters) and nothing else.
 
 Tolerance: zero; files are compared byte for byte, counts exactly.
 """
@@ -17,7 +18,6 @@ import json
 import os
 import subprocess
 import sys
-import threading
 import types
 
 import pytest
@@ -26,7 +26,6 @@ import torch
 import amira_tpu_torch
 from amira_tpu_torch import batch
 from amira_tpu_torch.ops import sw_batch
-from amira_tpu_torch.tracing import TIMER, ThreadSeconds
 from synthetic import make_isolate
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -67,9 +66,23 @@ def _read(path):
         return f.read()
 
 
+def _kernel_counters(entry):
+    """The `align.kernels` counters summed over the spans under `entry`, as
+    sorted (name, total) pairs."""
+    total = collections.Counter()
+    for s in entry.get("spans", []):
+        if s["span"] == "align.kernels":
+            total.update(s["counters"])
+        total.update(dict(_kernel_counters(s)))
+    return tuple(sorted(total.items()))
+
+
 def _phases(outdir):
     with open(os.path.join(outdir, "phase_timings.json")) as f:
-        return [(p["phase"], p.get("items")) for p in json.load(f)]
+        return [
+            (p["phase"], p.get("items"), p.get("output"), _kernel_counters(p))
+            for p in json.load(f)
+        ]
 
 
 @pytest.fixture(scope="module")
@@ -140,7 +153,9 @@ def test_batch_summaries(runs, workers):
 def test_each_isolate_times_only_its_own_phases(runs, name):
     out, _ = runs
     own = _phases(out["single"][name])
-    assert own and len({p for p, _ in own}) == len(own)
+    assert own and len({p[:3] for p in own}) == len(own)
+    # polishing's launches are counted in its own spans, once an isolate
+    assert [dict(p[3])["launches"] > 0 for p in own if p[3]] == [True]
     for workers in (1, 2):
         assert _phases(out[f"port_w{workers}"][name]) == own
     # the two isolates differ in reads, so mixed phases would show
@@ -316,41 +331,3 @@ def test_every_launch_is_inside_its_device_guard(monkeypatch):
     assert current == []
     assert sw_batch.LAUNCHES == {"sw_dp": 1, "sw_traceback": 1}
     assert sw_batch.DP_SHAPES == {(B, Lq, W): 1}
-    assert sw_batch.thread_launches(reset=True) == {"sw_dp": 1, "sw_traceback": 1}
-    assert sw_batch.thread_launches() == {"sw_dp": 0, "sw_traceback": 0}
-
-
-def test_timer_and_stage_seconds_are_per_thread_under_contention():
-    """Threads that time phases at once each see their own phases, open
-    stack and device, and their own stage seconds (more threads than cores,
-    a short switch interval)."""
-    stages = ThreadSeconds(("a",))
-    n_threads, n_phases = 24, 40
-    errors = []
-
-    def work(t):
-        try:
-            TIMER.reset(None)
-            for i in range(n_phases):
-                with TIMER.phase(f"t{t}.outer{i}", items=t):
-                    with TIMER.phase(f"t{t}.inner{i}"):
-                        assert [s[0] for s in TIMER._stack] == [f"t{t}.outer{i}", f"t{t}.inner{i}"]
-                        stages["a"] += 1.0
-            want = [n for i in range(n_phases) for n in (f"t{t}.inner{i}", f"t{t}.outer{i}")]
-            assert [p["phase"] for p in TIMER.phases] == want
-            assert stages["a"] == float(n_phases)
-        except AssertionError as e:  # reported by the main thread
-            errors.append(e)
-
-    interval = sys.getswitchinterval()
-    sys.setswitchinterval(1e-6)
-    try:
-        threads = [threading.Thread(target=work, args=(t,)) for t in range(n_threads)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=60)
-    finally:
-        sys.setswitchinterval(interval)
-    assert not any(th.is_alive() for th in threads)
-    assert errors == []

@@ -33,6 +33,8 @@ from amira_tpu_torch import accuracy_run, scale_run  # noqa: E402
 SCALE_READS = 2500  # scale_run.py, seed 17: 2,000 reads give one AMR row
 ACCURACY_READS = 1500  # accuracy_run.py, seed 23: 1,000 reads give one
 EXPECTED_GENES = ["amrX", "amrX", "amrY"]
+# the port's top-level phases that the JAX package has no phase for
+PORT_ONLY_PHASES = ("reference_setup", "graph_trim", "graph_prune", "write_outputs", "result_table")
 
 
 def _start(argv: list[str]) -> subprocess.Popen:
@@ -159,11 +161,13 @@ def test_reuse_runs_write_the_same_tsv_and_phases(reuse_runs):
     for d in (jax_dir, twin_dir):
         with open(os.path.join(d, "out", "phase_timings.json")) as f:
             phases.append([p["phase"] for p in json.load(f)])
-    assert phases[0] == phases[1]
+    # the port's phases over what the JAX package leaves untimed
+    assert [p for p in phases[1] if p not in PORT_ONLY_PHASES] == phases[0]
     with open(os.path.join(twin_dir, "out", "scale_summary.json")) as f:
         summary = json.load(f)
     assert summary["generation_reused"] and summary["amr_rows"] == 3
-    assert list(summary["phases"]) == phases[0]
+    assert list(summary["phases"]) == list(dict.fromkeys(phases[1]))
+    assert set(summary["cleaning_stages"]) >= {"clean.build", "clean.tips", "clean.bubbles"}
     assert summary["platform"] == "cpu" and summary["peak_device_memory_bytes"] is None
     assert os.path.exists(os.path.join(twin_dir, "out", "SCALE_REPORT.md"))
 
