@@ -9,16 +9,23 @@ the CPU: M/I/D/I2/D2 band vectors with two-piece affine gaps (minimap2's
 -O 4,24 -E 2,1), traceback directions packed one byte per cell, and the walk
 emitting 2-bit-packed =/X/I/D op sequences (minimap2 --eqx semantics).
 
-Band placement is seed-chain-extend, on the host and unchanged from the JAX
-package: shared-15-mer hits are clustered by diagonal into chains, the top
-chains each get a banded extension, z-drop (minimap2 -z) splits alignments
-across bad joins, and collinear chain pieces are stitched back together
+Band placement is seed-chain-extend, with the JAX package's jobs:
+shared-15-mer hits are clustered by diagonal into chains, the top chains
+each get a banded extension, z-drop (minimap2 -z) splits alignments across
+bad joins, and collinear chain pieces are stitched back together
 with two-piece gap costs, so a read with a structural gap wider than the
 band still maps as one alignment with a long I/D run. Pairs with no seeds
-are reported unmapped.
+are reported unmapped. Seeding and chaining run on the aligner's device
+(the card, or the CPU): one seed index over every reference, and all reads
+of a `map_reads` call seeded together in a few passes of sorts and
+searches (at most `SEED_PASS_BASES` query bases and `SEED_PASS_HITS` hits
+a pass), of which only the job table comes back to the host.
 
 Under an open phase (`tracing`), each `map_reads` is divided into spans:
-`align.seed` (the seed chains), then per batch `align.pack` (the job
+`align.seed` (the seed chains; it counts the device `seed_passes`, the
+query `seed_kmers` of both strands, the `seed_hits` kept after the repeat
+cut and the reads' reference subsets, and the `seed_jobs` emitted, which
+the batches' `jobs` add up to), then per batch `align.pack` (the job
 arrays), `align.kernels` (the DP and traceback and the copies back, the
 host waiting for the card) and `align.unpack` (the CIGARs), and last
 `align.stitch` (z-drop split and stitch; `map_with_diagonals` has the
@@ -400,110 +407,87 @@ def _stitch_pieces(pieces):
     return max(parts, key=lambda a: a.score)
 
 
+# a device pass of the seeding holds both strands' k-mers of at most
+# SEED_PASS_BASES query bases, and the hits of at most SEED_PASS_HITS of
+# them (~80 bytes a hit) unless one read alone has more; reads are
+# independent, so where a pass ends changes no job
+SEED_PASS_BASES = 1 << 24
+SEED_PASS_HITS = 1 << 25
+
+
+def _passes(sizes, cap):
+    """(i, j) ranges of consecutive items whose `sizes` add up to at most
+    `cap` a range (an item larger than `cap` alone)."""
+    i = 0
+    while i < len(sizes):
+        j, total = i + 1, sizes[i]
+        while j < len(sizes) and total + sizes[j] <= cap:
+            total += sizes[j]
+            j += 1
+        yield i, j
+        i = j
+
+
+def _valid_windows(codes: np.ndarray, lens: np.ndarray, k: int, device):
+    """Every window of k ACGT bases inside one of the sequences whose base
+    codes (`encode_dna`, 255 for other characters) lie back to back in
+    `codes`, `lens[i]` bases each, uploaded in one copy. Returns int64
+    device tensors, windows in order: the sequence's index, the window's
+    position in it, its forward k-mer and the k-mer of its reverse
+    complement, both packed two bits a base, first base highest."""
+    n = len(codes) - k + 1
+    if n <= 0:
+        empty = torch.zeros(0, dtype=torch.int64, device=device)
+        return empty, empty, empty, empty
+    c = torch.from_numpy(codes).to(device).to(torch.int64)
+    lens_t = torch.from_numpy(lens).to(device)
+    seq = torch.repeat_interleave(
+        torch.arange(len(lens), device=device), lens_t, output_size=len(codes)
+    )[:n]
+    pos = torch.arange(n, device=device) - (torch.cumsum(lens_t, 0) - lens_t)[seq]
+    bad = torch.zeros(len(codes) + 1, dtype=torch.int32, device=device)
+    bad[1:] = torch.cumsum(c == 255, 0)
+    ok = (bad[k:] - bad[:n] == 0) & (pos + k <= lens_t[seq])
+    fwd = torch.zeros(n, dtype=torch.int64, device=device)
+    rev = torch.zeros_like(fwd)
+    for j in range(k):
+        b = c[j : j + n] & 3
+        fwd = (fwd << 2) | b
+        rev |= (3 - b) << (2 * j)
+    at = torch.nonzero(ok).squeeze(1)
+    return seq[at], pos[at], fwd[at], rev[at]
+
+
 class _SeedIndex:
-    """One seed index over every reference: each valid k-mer of each
-    reference as (k-mer, reference id, position), sorted in that order. A
-    query strand's k-mers find their hits on all references at once (the
-    JAX package searches each reference's own index in turn): the top
-    `bits` bits of a k-mer name its bucket, and `start` holds where each
-    bucket begins in the sorted arrays, so a lookup is two gathers and a
-    compare over the few entries that share the bucket."""
+    """One seed index over every reference, on the aligner's device: each
+    valid k-mer of each reference as (k-mer, reference id, position),
+    sorted in that order. A query's k-mers find their hits on all
+    references at once (the JAX package searches each reference's own
+    index in turn): a k-mer's hits are the run of equal entries that
+    `torch.searchsorted` bounds. A k-mer seen more than `max_occ` times in
+    one reference (a repeat) is left out for that reference: a query k-mer
+    equal to it would hit every copy, and chaining drops such runs of hits
+    (the JAX package's `_seed_chains` drops them per query k-mer)."""
 
-    __slots__ = ("kmers", "ref", "pos", "shift", "start")
+    __slots__ = ("kmers", "ref", "pos")
 
-    def __init__(self, codes: list, k: int):
-        # the references back to back, each followed by k invalid codes, so
-        # that no valid window spans two of them
-        sep = np.full(k, 255, dtype=np.uint8)
-        parts = [p for c in codes for p in (c, sep)]
-        cat = np.concatenate(parts) if parts else np.zeros(0, dtype=np.uint8)
-        starts = np.cumsum([0] + [len(c) + k for c in codes[:-1]]).astype(np.int64)
-        km = _forward_kmers(cat, k)
-        at = np.nonzero(km != _KMER_SENTINEL)[0].astype(np.int64)
+    def __init__(self, codes: list, k: int, device, max_occ: int = 8):
+        lens = np.array([len(c) for c in codes], dtype=np.int64)
+        cat = np.concatenate(codes) if codes else np.zeros(0, dtype=np.uint8)
+        ref, pos, fwd, _rev = _valid_windows(cat, lens, k, device)
         # stable: equal k-mers stay in (reference, position) order
-        order = np.argsort(km[at], kind="stable")
-        at = at[order]
-        self.kmers = km[at]
-        self.ref = np.searchsorted(starts, at, side="right") - 1
-        self.pos = at - starts[self.ref]
-        # about two buckets per entry, at most one per k-mer
-        bits = min(max(len(self.kmers).bit_length() + 1, 8), 2 * k)
-        self.shift = np.uint64(2 * k - bits)
-        counts = np.bincount(
-            (self.kmers >> self.shift).astype(np.int64), minlength=1 << bits
-        )
-        self.start = np.concatenate([[0], np.cumsum(counts)])
+        kmers, order = torch.sort(fwd, stable=True)
+        ref, pos = ref[order], pos[order]
+        run = torch.cumsum(_starts(kmers) | _starts(ref), 0) - 1
+        keep = torch.nonzero(torch.bincount(run)[run] <= max_occ).squeeze(1)
+        self.kmers, self.ref, self.pos = kmers[keep], ref[keep], pos[keep]
 
-    def chains(self, qkmers, band_width, max_occ=8, max_chains=4, allowed=None):
-        """The seed chains of one query strand against every reference at
-        once (minimap2's chaining stage): all occurrences of each query
-        k-mer in a reference, unless there are more than `max_occ`, give a
-        diagonal (ref_pos - q_pos), and a reference's sorted diagonals split
-        into chains where they jump by more than half the band. Returns
-        (ref, diag, count) arrays of each reference's first `max_chains`
-        chains (median diagonal, seed count), grouped by reference id
-        ascending and, within a reference, in the order of the JAX
-        package's `_seed_chains` (seed count descending, then diagonal). A
-        reference's chains depend only on the multiset of its kept
-        diagonals (the median of each sorted run and the stable sort by
-        count), which is what this computes. `allowed` is an optional bool
-        mask over reference ids."""
-        qk, qpos = qkmers
-        empty = np.zeros(0, dtype=np.int64)
-        if len(qk) == 0 or len(self.kmers) == 0:
-            return empty, empty, empty
-        # each query k-mer against every entry of its bucket; the entries
-        # equal to it are its hits, in index order
-        bucket = (qk >> self.shift).astype(np.int64)
-        lo = self.start[bucket]
-        n = self.start[bucket + 1] - lo
-        total = int(n.sum())
-        if total == 0:
-            return empty, empty, empty
-        q_id = np.repeat(np.arange(len(qk)), n)
-        hit = np.repeat(lo - (np.cumsum(n) - n), n) + np.arange(total)
-        same = self.kmers[hit] == qk[q_id]
-        hit, q_id = hit[same], q_id[same]
-        total = len(hit)
-        if total == 0:
-            return empty, empty, empty
-        ref = self.ref[hit]
-        qp = qpos[q_id]
-        # occurrences of one query k-mer in one reference are one run of
-        # its hits: drop runs longer than max_occ (repeats)
-        cut = np.flatnonzero((q_id[1:] != q_id[:-1]) | (ref[1:] != ref[:-1])) + 1
-        run_len = np.diff(np.concatenate([[0], cut, [total]]))
-        keep = np.repeat(run_len <= max_occ, run_len)
-        if allowed is not None:
-            keep &= allowed[ref]
-        ref = ref[keep]
-        diag = self.pos[hit[keep]] - qp[keep]
-        if len(ref) == 0:
-            return empty, empty, empty
-        order = np.lexsort((diag, ref))
-        ref, diag = ref[order], diag[order]
-        # chains: runs of one reference's sorted diagonals split where they
-        # jump by more than half the band
-        cut = np.flatnonzero(
-            (ref[1:] != ref[:-1]) | (np.diff(diag) > band_width // 2)
-        ) + 1
-        s0 = np.concatenate([[0], cut])
-        s1 = np.concatenate([cut, [len(ref)]])
-        count = s1 - s0
-        # int(np.median(run)): the mean of the two middle values, truncated
-        med = np.trunc(
-            (diag[s0 + (count - 1) // 2] + diag[s0 + count // 2]) / 2.0
-        ).astype(np.int64)
-        cref = ref[s0]
-        order = np.lexsort((np.arange(len(count)), -count, cref))
-        cref, med, count = cref[order], med[order], count[order]
-        first = np.concatenate([[True], cref[1:] != cref[:-1]])
-        group_start = np.maximum.accumulate(
-            np.where(first, np.arange(len(cref)), 0)
-        )
-        rank = np.arange(len(cref)) - group_start
-        keep = rank < max_chains
-        return cref[keep], med[keep], count[keep]
+
+def _starts(key: torch.Tensor) -> torch.Tensor:
+    """Bool: where a run of equal values of `key` begins."""
+    first = torch.ones(len(key), dtype=torch.bool, device=key.device)
+    first[1:] = key[1:] != key[:-1]
+    return first
 
 
 class Aligner:
@@ -549,50 +533,148 @@ class Aligner:
         return self.map_reads({"q": seq}, min_seeds).get("q", {})
 
     def _jobs_for(self, rid, seq, min_seeds, allowed=None):
-        """Alignment jobs of one read: for each strand, each reference (in
-        `allowed` order, else the aligner's) and each of its seed chains
-        with enough support, (job_tag, strand, qseq, diag) with job_tag =
-        (rid, ref). The same list, in the same order, as the JAX package's
-        loop over `_seed_chains` per reference, from one seed index."""
+        """Alignment jobs of one read: `_seed` of that read alone."""
+        return self._seed([(rid, seq, allowed)], min_seeds)
+
+    def _seed(self, items, min_seeds):
+        """Alignment jobs of the reads `items` = [(rid, seq, allowed)]: for
+        each read, each strand (+ then -), each reference (in `allowed`
+        order, a list of distinct names, else the aligner's) and each of
+        its seed chains with enough support, (job_tag, strand, qseq, diag)
+        with job_tag = (rid, ref). The same list, in the same order, as the
+        JAX package's loop over `_seed_chains` per read and reference, from
+        one seed index. Reads are seeded in device passes of at most
+        SEED_PASS_BASES query bases (a longer read alone)."""
         if self._seed_index is None:
             self._seed_index = _SeedIndex(
-                [self.ref_codes[n] for n in self.ref_names], self.seed_k
+                [self.ref_codes[n] for n in self.ref_names], self.seed_k, self.device
             )
-        mask = None
-        if allowed is not None:
-            mask = np.zeros(len(self.ref_names), dtype=bool)
-            ids = [self._ref_id[n] for n in allowed]
-            mask[ids] = True
         jobs = []
-        for strand, qseq in (("+", seq), ("-", reverse_complement(seq))):
-            qkmers = query_seed_kmers(encode_dna(qseq), self.seed_k)
-            ref, diag, count = self._seed_index.chains(
-                qkmers, self.band_width, allowed=mask
+        for i, j in _passes([len(it[1]) for it in items], SEED_PASS_BASES):
+            jobs.extend(self._seed_pass(items[i:j], min_seeds))
+        TIMER.count("seed_jobs", len(jobs))
+        return jobs
+
+    def _seed_pass(self, items, min_seeds, max_chains=4):
+        """One device pass of `_seed` (minimap2's seeding and chaining):
+        every occurrence of each query k-mer in a reference (repeats are
+        left out of the index) gives a diagonal (ref_pos - q_pos); the
+        sorted diagonals of each (read, strand, reference) split into
+        chains where they jump by more than half the band; a chain is its
+        median diagonal and seed count, and the first `max_chains` by count
+        (then diagonal) with enough support become jobs. One copy brings
+        the job table back to the host. Reads with more than SEED_PASS_HITS
+        hits in all are split into passes of fewer, before any hit is
+        expanded."""
+        idx, k, dev = self._seed_index, self.seed_k, self.device
+        n_ref = len(self.ref_names)
+        seqs = [it[1] for it in items]
+        lens = np.fromiter(map(len, seqs), dtype=np.int64, count=len(seqs))
+        read, qpos, fwd, rev = _valid_windows(encode_dna("".join(seqs)), lens, k, dev)
+        # both strands; the minus strand's k-mers are those of the reverse
+        # complement, in which the window at p starts at len - k - p
+        qk = torch.cat([fwd, rev])
+        qpos = torch.cat([qpos, torch.from_numpy(lens).to(dev)[read] - k - qpos])
+        strand_of = torch.cat([2 * read, 2 * read + 1])  # read * 2 + strand
+        lo = torch.searchsorted(idx.kmers, qk)
+        n = torch.searchsorted(idx.kmers, qk, right=True) - lo
+        total = int(n.sum())
+        if total > SEED_PASS_HITS and len(items) > 1:
+            hits = torch.zeros(len(items), dtype=torch.int64, device=dev)
+            hits.index_add_(0, strand_of >> 1, n)
+            return [
+                job
+                for i, j in _passes(hits.tolist(), SEED_PASS_HITS)
+                for job in self._seed_pass(items[i:j], min_seeds, max_chains)
+            ]
+        TIMER.count("seed_passes")
+        TIMER.count("seed_kmers", len(qk))
+        if total == 0:
+            return []
+        q = torch.repeat_interleave(
+            torch.arange(len(qk), device=dev), n, output_size=total
+        )
+        hit = lo[q] + torch.arange(total, device=dev) - (torch.cumsum(n, 0) - n)[q]
+        # each hit's reference by its place in the read's order: the id, or
+        # for a read with `allowed` the index in that list
+        slot = idx.ref[hit]
+        limited = [r for r, it in enumerate(items) if it[2] is not None]
+        if limited:
+            # (read, reference) pairs of the reads with `allowed`, sorted,
+            # and each one's place in its list
+            pairs = np.array(
+                [r * n_ref + self._ref_id[nm] for r in limited for nm in items[r][2]],
+                dtype=np.int64,
             )
-            if len(ref) == 0:
-                continue
-            # secondary chains need real support relative to the primary
-            # (a reference's first chain), or noise spawns spurious
-            # extension jobs
-            first = np.concatenate([[True], ref[1:] != ref[:-1]])
-            top = count[np.maximum.accumulate(
-                np.where(first, np.arange(len(ref)), 0)
-            )]
-            ok = (count >= min_seeds) & (count * 20 >= top)
-            ref, diag = ref[ok].tolist(), diag[ok].tolist()
-            if allowed is None:
-                names = self.ref_names
-                jobs.extend(
-                    ((rid, names[r]), strand, qseq, d) for r, d in zip(ref, diag)
-                )
-                continue
-            by_ref: dict = {}
-            for r, d in zip(ref, diag):
-                by_ref.setdefault(r, []).append(d)
-            for name, r in zip(allowed, ids):
-                jobs.extend(
-                    ((rid, name), strand, qseq, d) for d in by_ref.get(r, ())
-                )
+            places = np.concatenate(
+                [np.arange(len(items[r][2])) for r in limited]
+            ).astype(np.int64)
+            order = np.argsort(pairs)
+            lim = np.zeros(len(items), dtype=bool)
+            lim[limited] = True
+            hread = strand_of[q] >> 1
+            keep = ~torch.from_numpy(lim).to(dev)[hread]
+            if len(pairs):
+                pairs_t = torch.from_numpy(pairs[order]).to(dev)
+                pair = hread * n_ref + slot
+                at = torch.searchsorted(pairs_t, pair).clamp_(max=len(pairs) - 1)
+                found = pairs_t[at] == pair
+                keep |= found
+                slot = torch.where(found, torch.from_numpy(places[order]).to(dev)[at], slot)
+            sel = torch.nonzero(keep).squeeze(1)
+            q, hit, slot = q[sel], hit[sel], slot[sel]
+        TIMER.count("seed_hits", len(q))
+        if len(q) == 0:
+            return []
+        diag = idx.pos[hit] - qpos[q]
+        key = strand_of[q] * n_ref + slot  # read, strand, reference's place
+        diag, order = torch.sort(diag, stable=True)
+        key, order = torch.sort(key[order], stable=True)
+        diag = diag[order]
+        # chains: runs of one key's sorted diagonals split where they jump
+        # by more than half the band
+        first = _starts(key)
+        first[1:] |= diag[1:] - diag[:-1] > self.band_width // 2
+        s0 = torch.nonzero(first).squeeze(1)
+        count = torch.diff(s0, append=s0.new_tensor([len(diag)]))
+        # int(np.median(run)): the mean of the two middle values, truncated
+        med = torch.div(
+            diag[s0 + (count - 1) // 2] + diag[s0 + count // 2], 2, rounding_mode="trunc"
+        )
+        ckey = key[s0]
+        # each key's chains by seed count descending, then diagonal
+        order = torch.sort(-count, stable=True).indices
+        order = order[torch.sort(ckey[order], stable=True).indices]
+        ckey, med, count = ckey[order], med[order], count[order]
+        at = torch.arange(len(ckey), device=dev)
+        head = torch.cummax(torch.where(_starts(ckey), at, 0), 0).values
+        rank = at - head
+        # secondary chains need real support relative to the primary (a
+        # key's first chain), or noise spawns spurious extension jobs
+        ok = (rank < max_chains) & (count >= min_seeds) & (count * 20 >= count[head])
+        ckey, diag = torch.stack([ckey[ok], med[ok]]).cpu().numpy()
+        return self._job_tuples(items, ckey, diag)
+
+    def _job_tuples(self, items, ckey, diag):
+        """The jobs of one pass's job table, whose rows come in job order:
+        (read, strand, reference's place, chain rank)."""
+        n_ref = len(self.ref_names)
+        if len(ckey) == 0:
+            return []
+        rs = ckey // n_ref
+        place = (ckey % n_ref).tolist()
+        diag = diag.tolist()
+        bounds = (np.flatnonzero(np.diff(rs)) + 1).tolist()
+        jobs = []
+        for g0, g1 in zip([0, *bounds], [*bounds, len(rs)]):
+            r, s = divmod(int(rs[g0]), 2)
+            rid, seq, allowed = items[r]
+            names = self.ref_names if allowed is None else allowed
+            strand, qseq = ("+", seq) if s == 0 else ("-", reverse_complement(seq))
+            jobs.extend(
+                ((rid, names[f]), strand, qseq, d)
+                for f, d in zip(place[g0:g1], diag[g0:g1])
+            )
         return jobs
 
     def _run_jobs(self, jobs):
@@ -673,11 +755,14 @@ class Aligner:
         {read_id: {ref: (strand, Alignment)}}. `ref_subsets` optionally
         restricts each read to {read_id: [ref names]} (used to batch many
         independent per-cluster mapping problems into one launch set)."""
-        jobs = []
         with TIMER.span("align.seed"):
-            for rid, seq in reads.items():
-                allowed = None if ref_subsets is None else ref_subsets.get(rid)
-                jobs.extend(self._jobs_for(rid, seq, min_seeds, allowed))
+            jobs = self._seed(
+                [
+                    (rid, seq, None if ref_subsets is None else ref_subsets.get(rid))
+                    for rid, seq in reads.items()
+                ],
+                min_seeds,
+            )
         return self._best_per_read(self._run_jobs(jobs))
 
     @staticmethod

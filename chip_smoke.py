@@ -160,13 +160,13 @@ RANDOM_SHAPES = [(64, 96, 40), (256, 192, 24), (256, 1024, 980)]
 W512_EDGE_SHAPE = (512, 192, 37)
 W512_RANDOM_SHAPE = (512, 192, 24)
 # reads of the phase-4 isolate that phase 5b's SAM route takes, and those
-# it seeds both ways (the per-gene loop costs seconds per read). The route
+# it seeds every way (the per-gene loop costs seconds per read). The route
 # costs about 5-6 ms of host time a read on the H100's host (PERF.md): all
 # 50,000 reads took this script to 917 s of its 1,200. It takes the first
 # 10,000 (20,000 before phases 6a and 6b, which add about 200 s), so that
 # the script ends near half its limit, with room for the host's spread.
 SAM_READS = 10_000
-SEEDING_READS = 1
+SEEDING_READS = 4
 # phase 6a: a batch of this many copies of the phase-4 isolate, run once per
 # worker count (BASELINE config 4 is 32 isolates per host; four at a time
 # fill four streams on the card)
@@ -977,12 +977,20 @@ def time_seeding(consensus, fastq, n, device):
     """The consensus QC's seeding on the first n reads, before and after
     the one-index seeding: a loop over the consensus genes, each with its
     own seed index (built first and not timed), as the JAX package seeds,
-    against `Aligner._jobs_for`; the job lists must be equal. Returns (ms
-    per read of the loop, ms per read of `_jobs_for`, jobs)."""
+    against `Aligner._jobs_for` read by read; the job lists must be equal.
+    Then the main path's batched seeding, `Aligner._seed` of all n reads at
+    once, with and without reference subsets (each read's in an order of
+    its own), in one device pass and with the pass caps lowered so that
+    passes end inside the reads' run, by bases and by hits: each job list
+    must equal the loop's, read after read. Returns (ms per read of the
+    loop, ms per read of `_jobs_for`, jobs)."""
     import gzip
     import itertools
 
+    import numpy as np
+
     from amira_tpu_torch.io import parse_fastq
+    from amira_tpu_torch.ops import align
     from amira_tpu_torch.ops.align import (
         Aligner, build_ref_seed_index, query_seed_kmers, reverse_complement,
     )
@@ -995,28 +1003,58 @@ def time_seeding(consensus, fastq, n, device):
         lines = list(itertools.islice(f, 4 * n))
     reads = {lines[i][1:].strip(): lines[i + 1].strip() for i in range(0, len(lines), 4)}
     aligner._jobs_for("warm-up", next(iter(reads.values())), 2)  # builds the index
-    loop_s = index_s = 0.0
-    n_jobs = 0
-    for rid, seq in reads.items():
-        t = time.time()
+
+    def loop_jobs(rid, seq, names):
         jobs = []
         for strand, qseq in (("+", seq), ("-", reverse_complement(seq))):
             qkmers = query_seed_kmers(encode_dna(qseq), aligner.seed_k)
-            for name in aligner.ref_names:
+            for name in names:
                 chains = seed_chains_per_gene(qkmers, indexes[name], aligner.band_width)
                 top = chains[0][1] if chains else 0
                 jobs.extend(
                     ((rid, name), strand, qseq, diag) for diag, cnt in chains
                     if not (cnt < 2 or cnt * 20 < top)
                 )
+        return jobs
+
+    loop_s = index_s = 0.0
+    expected = []
+    for rid, seq in reads.items():
+        t = time.time()
+        jobs = loop_jobs(rid, seq, aligner.ref_names)
         loop_s += time.time() - t
         t = time.time()
         got = aligner._jobs_for(rid, seq, 2)
         index_s += time.time() - t
         if got != jobs:
             fail(f"phase 5b: the one-index seeding's jobs differ from the per-gene loop's for {rid}")
-        n_jobs += len(jobs)
-    return 1e3 * loop_s / len(reads), 1e3 * index_s / len(reads), n_jobs
+        expected.extend(jobs)
+    # each read's subset: the genes it seeds and as many others, shuffled
+    rng = np.random.RandomState(5)
+    subsets = {}
+    for rid in reads:
+        own = sorted({j[0][1] for j in expected if j[0][0] == rid})
+        others = rng.choice(aligner.ref_names, size=len(own) + 4, replace=False)
+        names = list(dict.fromkeys([*own, *others]))
+        subsets[rid] = [names[i] for i in rng.permutation(len(names))]
+    expected_sub = [job for rid, seq in reads.items() for job in loop_jobs(rid, seq, subsets[rid])]
+    bases = sum(map(len, reads.values()))
+    caps = {
+        "one pass": (align.SEED_PASS_BASES, align.SEED_PASS_HITS),
+        "passes by bases": (max(2 * bases // 3, 1), align.SEED_PASS_HITS),
+        "passes by hits": (align.SEED_PASS_BASES, 2),
+    }
+    try:
+        for what, (bases_cap, hits_cap) in caps.items():
+            align.SEED_PASS_BASES, align.SEED_PASS_HITS = bases_cap, hits_cap
+            if aligner._seed([(rid, seq, None) for rid, seq in reads.items()], 2) != expected:
+                fail(f"phase 5b: the batched seeding of {len(reads)} reads ({what}) differs from the per-gene loop")
+            got = aligner._seed([(rid, seq, subsets[rid]) for rid, seq in reads.items()], 2)
+            if got != expected_sub:
+                fail(f"phase 5b: the batched seeding with subsets ({what}) differs from the per-gene loop")
+    finally:
+        align.SEED_PASS_BASES, align.SEED_PASS_HITS = caps["one pass"]
+    return 1e3 * loop_s / len(reads), 1e3 * index_s / len(reads), len(expected)
 
 
 def span_sums(entries):
@@ -1096,12 +1134,14 @@ def run_sam_route(files, n_reads, device):
     spans = span_sums(qc_phases)
     span_s = lambda *names: sum(spans.get(k, [0.0])[0] for k in names)  # noqa: E731
     kernels = spans.get("align.kernels", [0.0, {}])[1]
+    seeds = spans.get("align.seed", [0.0, {}])[1]
     qc = {
         "seconds": sum(p["seconds"] for p in qc_phases),
         "qc_seeding_s": span_s("align.seed"),
         "qc_align_host_s": span_s("align.pack", "align.unpack", "align.stitch"),
         "qc_kernel_wait_s": span_s("align.kernels"),
         **{k: kernels.get(k, 0) for k in ("launches", "jobs", "live_cells", "tb_steps")},
+        **{k: seeds.get(k, 0) for k in ("seed_passes", "seed_kmers", "seed_hits", "seed_jobs")},
     }
     print(
         f"phase 5b SAM route: {n} reads, {wall_s:.1f} s wall ({1e3 * wall_s / n:.2f} ms per read), "
@@ -1112,7 +1152,8 @@ def run_sam_route(files, n_reads, device):
         f"{qc['qc_seeding_s']:.1f} s ({1e3 * qc['qc_seeding_s'] / n:.2f} ms per read), host "
         f"alignment {qc['qc_align_host_s']:.1f} s, kernel wait {qc['qc_kernel_wait_s']:.1f} s; "
         f"{qc['launches']} sw_cigar launches, {qc['jobs']} jobs, {qc['live_cells']} live cells, "
-        f"{qc['tb_steps']} traceback steps"
+        f"{qc['tb_steps']} traceback steps; seeding in {qc['seed_passes']} device passes, "
+        f"{qc['seed_kmers']} k-mers, {qc['seed_hits']} hits, {qc['seed_jobs']} jobs"
     )
     print(
         f"phase 5b kernel wrappers' spans on the stream over the run: sw_dp {span_ms['sw_dp']:.1f} ms, sw_traceback "
@@ -1129,6 +1170,8 @@ def run_sam_route(files, n_reads, device):
     qc["seeding_loop_ms_per_read"], qc["seeding_index_ms_per_read"] = loop_ms, index_ms
     if qc["launches"] <= 0 or qc["jobs"] <= 0:
         fail(f"phase 5b: the consensus QC did not align on the card ({qc})")
+    if qc["seed_jobs"] != qc["jobs"]:
+        fail(f"phase 5b: the QC seeded {qc['seed_jobs']} jobs but aligned {qc['jobs']}")
     for name in ("gene_calls_with_gene_filtering.json", "gene_positions_with_gene_filtering.json"):
         if not os.path.exists(os.path.join(out, name)):
             fail(f"phase 5b: {name} was not written")

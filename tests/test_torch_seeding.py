@@ -7,7 +7,10 @@ repeats whose k-mers occur more than `max_occ` times in one reference, and
 reads that carry a gap wider than half the band (so that one reference
 gives two chains), in both orientations; reads are also restricted to
 subsets of the references (`allowed`, the `ref_subsets` of `map_reads`),
-in an order of their own. A hypothesis test draws such sets.
+in an order of their own. A hypothesis test draws such sets. Many reads
+seeded in one `map_reads` call, in one device pass or in several, give the
+JAX package's jobs of each read in turn, and `align.seed` counts the
+passes, k-mers, hits and jobs of the call.
 
 Tolerance: zero; job lists are compared with ==.
 """
@@ -19,8 +22,10 @@ from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
 from amira_tpu.ops.align import Aligner as JaxAligner
+from amira_tpu_torch.ops import align as port_align
 from amira_tpu_torch.ops.align import Aligner as PortAligner
 from amira_tpu_torch.ops.align import reverse_complement
+from amira_tpu_torch.tracing import TIMER
 
 BASES = np.array(list("ACGT"))
 
@@ -166,3 +171,173 @@ def test_secondary_chain_at_the_support_ratio_is_kept():
     jobs = JaxAligner(refs, band_width=64)._jobs_for("r", read, 2)
     assert PortAligner(refs, band_width=64, device="cpu")._jobs_for("r", read, 2) == jobs
     assert [(j[0][1], j[1], j[3]) for j in jobs] == [("ref", "+", 0), ("ref", "+", 46)]
+
+
+def _many_reads(rng, refs, band_width):
+    """Reads for one `map_reads` call: reads over the references, one with
+    runs of N, one shorter than k, one with no hits, one over a tandem
+    repeat whose k-mers occur more than max_occ times in its reference."""
+    reads = {f"r{i}": _read(rng, refs, band_width) for i in range(6)}
+    n_read = list(_read(rng, refs, band_width))
+    for at in (5, len(n_read) // 2, len(n_read) - 30):
+        n_read[at : at + 7] = "N" * 7
+    reads["with_n"] = "".join(n_read)
+    reads["short"] = _seq(rng, 9)
+    reads["no_hits"] = _seq(rng, 150)
+    gene = next(n for n in refs if n.startswith("g"))
+    reads["repeat"] = refs["tandem"][:300] + refs[gene]
+    reads["r_last"] = _read(rng, refs, band_width)
+    return reads
+
+
+@pytest.mark.parametrize("passes", ["one", "several"])
+@pytest.mark.parametrize("band_width", [64, 256])
+@pytest.mark.parametrize("min_seeds", [1, 2])
+@pytest.mark.parametrize("subsets", [False, True])
+def test_map_reads_seeds_many_reads_as_jax_does_each(
+    monkeypatch, subsets, min_seeds, band_width, passes
+):
+    """The jobs that one `map_reads` call hands to the batches equal the
+    JAX package's `_jobs_for` of each read in turn, concatenated: with and
+    without `ref_subsets` (subsets in an order of their own, one empty,
+    one read left out), and in one pass or in several, one of which holds
+    consecutive reads."""
+    rng = np.random.RandomState(100 * min_seeds + band_width + 7 * subsets)
+    refs = _references(rng, 8)
+    refs["tandem"] = _seq(rng, 20) * 20  # each k-mer 19 or 20 times
+    reads = _many_reads(rng, refs, band_width)
+    names = list(refs)
+    ref_subsets = None
+    if subsets:
+        ref_subsets = {
+            rid: [names[j] for j in rng.permutation(len(names))[: int(rng.randint(1, len(names) + 1))]]
+            for rid in reads
+        }
+        ref_subsets["r1"] = sorted(names, reverse=True)
+        ref_subsets["r2"] = []
+        del ref_subsets["r3"]
+    jax_al = JaxAligner(refs, band_width=band_width)
+    expected = []
+    for rid, seq in reads.items():
+        allowed = None if ref_subsets is None else ref_subsets.get(rid)
+        expected.extend(jax_al._jobs_for(rid, seq, min_seeds, allowed))
+    assert jax_al._jobs_for("no_hits", reads["no_hits"], 1) == []
+    assert jax_al._jobs_for("short", reads["short"], 1) == []
+    assert jax_al._jobs_for("with_n", reads["with_n"], 1)
+    repeat_refs = {j[0][1] for j in jax_al._jobs_for("repeat", reads["repeat"], 1)}
+    assert repeat_refs and "tandem" not in repeat_refs
+
+    port_al = PortAligner(refs, band_width=band_width, device="cpu")
+    if passes == "several":
+        monkeypatch.setattr(port_align, "SEED_PASS_BASES", sum(map(len, reads.values())) // 4)
+    pass_reads = []
+    seed_pass = port_al._seed_pass
+    monkeypatch.setattr(
+        port_al, "_seed_pass",
+        lambda items, *a: pass_reads.append(len(items)) or seed_pass(items, *a),
+    )
+    got = []
+    monkeypatch.setattr(port_al, "_run_jobs", lambda jobs: got.extend(jobs) or [])
+    assert port_al.map_reads(dict(reads), min_seeds, ref_subsets) == {}
+    assert got == expected
+    assert sum(pass_reads) == len(reads)
+    if passes == "one":
+        assert pass_reads == [len(reads)]
+    else:
+        assert len(pass_reads) >= 3 and max(pass_reads) >= 2
+
+
+def _spans(entry, name):
+    for span in entry.get("spans", []):
+        if span["span"] == name:
+            yield span
+        yield from _spans(span, name)
+
+
+def test_align_seed_counts_passes_kmers_hits_and_jobs(monkeypatch):
+    """A traced `map_reads` under an open phase: `align.seed` carries
+    `seed_passes`, `seed_kmers`, `seed_hits` and `seed_jobs`, and its jobs
+    are the `jobs` of the call's `align.kernels` spans."""
+    rng = np.random.RandomState(9)
+    refs = _references(rng, 4, 80, 160)
+    reads = {f"r{i}": _read(rng, refs, 64) for i in range(3)}
+    reads["short"] = _seq(rng, 9)
+    al = PortAligner(refs, band_width=64, device="cpu")
+    monkeypatch.setattr(port_align, "SEED_PASS_BASES", len(reads["r0"]) + len(reads["r1"]))
+    TIMER.reset(None)
+    with TIMER.phase("p"):
+        al.map_reads(dict(reads))
+    (p,) = TIMER.phases
+    (seed,) = _spans(p, "align.seed")
+    c = seed["counters"]
+    assert set(c) == {"seed_passes", "seed_kmers", "seed_hits", "seed_jobs"}
+    assert c["seed_passes"] == 2
+    valid = sum(max(len(s) - 14, 0) for s in reads.values())
+    assert c["seed_kmers"] == 2 * valid
+    assert 0 < c["seed_jobs"] <= c["seed_hits"]
+    kernels = list(_spans(p, "align.kernels"))
+    assert kernels and c["seed_jobs"] == sum(s["counters"]["jobs"] for s in kernels)
+
+
+def _seed_counters(al, reads, ref_subsets, monkeypatch):
+    """The jobs a traced `map_reads` call hands to the batches, and its
+    `align.seed` counters."""
+    got = []
+    monkeypatch.setattr(al, "_run_jobs", lambda jobs: got.extend(jobs) or [])
+    TIMER.reset(None)
+    with TIMER.phase("p"):
+        assert al.map_reads(dict(reads), 2, ref_subsets) == {}
+    (p,) = TIMER.phases
+    (seed,) = _spans(p, "align.seed")
+    return got, seed["counters"]
+
+
+@pytest.mark.parametrize("subsets", [False, True])
+def test_passes_split_by_hits_when_alleles_share_every_kmer(monkeypatch, subsets):
+    """Polishing's situation: reads of a gene against the union of its many
+    near-identical alleles, whose k-mers are shared by all of them, so a
+    pass has many hits for few bases. Lowering SEED_PASS_HITS splits the
+    pass into several at read boundaries, before any hit is expanded; the
+    jobs stay the JAX package's, and the hits the same in all."""
+    rng = np.random.RandomState(21)
+    base = list(_seq(rng, 600))
+    refs = {}
+    for a in range(40):
+        allele = list(base)
+        for p in rng.choice(len(base), size=3, replace=False):
+            allele[p] = str(rng.choice(BASES))
+        refs[f"gene_{a}"] = "".join(allele)
+    refs["other"] = _seq(rng, 500)
+    names = list(refs)
+    reads = {}
+    for i in range(10):
+        s = list(refs[names[int(rng.randint(0, 40))]][int(rng.randint(0, 80)) :])
+        for p in range(0, len(s), int(rng.randint(15, 40))):
+            s[p] = str(rng.choice(BASES))
+        read = "".join(s)
+        reads[f"r{i}"] = reverse_complement(read) if i % 3 == 0 else read
+    ref_subsets = None
+    if subsets:
+        ref_subsets = {rid: [names[j] for j in rng.permutation(40)] for rid in reads}
+        ref_subsets["r4"] = ["other", *names[5:1:-1]]
+    jax_al = JaxAligner(refs, band_width=256)
+    expected = []
+    for rid, seq in reads.items():
+        expected.extend(
+            jax_al._jobs_for(rid, seq, 2, None if ref_subsets is None else ref_subsets[rid])
+        )
+    whole, whole_c = _seed_counters(
+        PortAligner(refs, band_width=256, device="cpu"), reads, ref_subsets, monkeypatch
+    )
+    assert whole == expected and whole_c["seed_passes"] == 1
+    # over ten hits a k-mer of the read's strand (seed_kmers counts both)
+    assert whole_c["seed_hits"] > 5 * whole_c["seed_kmers"]
+    monkeypatch.setattr(port_align, "SEED_PASS_HITS", whole_c["seed_hits"] // 4)
+    split, split_c = _seed_counters(
+        PortAligner(refs, band_width=256, device="cpu"), reads, ref_subsets, monkeypatch
+    )
+    assert split == expected
+    assert split_c["seed_passes"] >= 4
+    assert {k: split_c[k] for k in ("seed_kmers", "seed_hits", "seed_jobs")} == {
+        k: whole_c[k] for k in ("seed_kmers", "seed_hits", "seed_jobs")
+    }
