@@ -6,7 +6,9 @@ Reference semantics: amira/construct_graph.py:1482-2265. Junction nodes
 pairs sharing terminals whose read-sequence minimizer containment exceeds
 0.80 define correction operations; affected reads have the low-coverage gene
 segment spliced out via gene-symbol alignments. AMR genes are never deleted
-by a correction (construct_graph.py:1877-1881).
+by a correction (construct_graph.py:1877-1881). Unlike the reference, a read
+is corrected only where it holds the lower path's whole difference from the
+higher one (`correct_bubble_paths`).
 """
 
 from __future__ import annotations
@@ -1094,11 +1096,29 @@ def correct_bubble_paths(
                 common, (start_path, end_path), (first_idx, last_idx) = (
                     longest_common_sublist(genes_in_lower, genes_on_read)
                 )
-                if common:
-                    alignment_subset = read_alignment[
-                        lower_mapping[start_path] : lower_mapping[end_path]
-                        + 1
-                    ]
+                held = bool(common)
+                if held:
+                    lo_col = lower_mapping[start_path]
+                    hi_col = lower_mapping[end_path]
+                    lo_open = first_idx == 0
+                    hi_open = last_idx == len(genes_on_read) - 1
+                    # the shared run ends at the read's end or where the
+                    # read leaves the lower path; a read that goes on past
+                    # the run may hold the higher path beyond it, and
+                    # splicing the higher path over it writes a neighbour
+                    # gene in the place of a correct call (the reference
+                    # does; ROADMAP Queue 1). Both paths of a bubble can be
+                    # wrong, each at its own column, so no differing column
+                    # may lie at or past an end of the run where the read
+                    # goes on.
+                    held = not any(
+                        (i <= lo_col and not lo_open)
+                        or (i >= hi_col and not hi_open)
+                        for i, col in enumerate(read_alignment)
+                        if col[0] != col[1]
+                    )
+                if held:
+                    alignment_subset = read_alignment[lo_col : hi_col + 1]
                     alignment_subset = modify_alignment_subset(
                         alignment_subset,
                         genes_on_read[first_idx : last_idx + 1],

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 from .stree import SequenceIndex, find_sublist_indices, is_sublist
+from .tracing import TIMER
 
 
 # ------------------------------------------------------------------ anchors
@@ -857,7 +858,14 @@ def assign_reads_to_genes(
     graph, listOfGenes, cores=1, allele_counts=None, mean_node_coverage=None,
     path_threshold=5,
 ):
-    """Per-AMR-gene read->allele clustering (construct_graph.py:2880-2939)."""
+    """Per-AMR-gene read->allele clustering (construct_graph.py:2880-2939).
+
+    Under an open phase each gene with graph nodes adds one to the counter
+    `genes` and opens three spans: `cluster.gene_paths` (its node and
+    gene-call indexes and `get_paths_for_gene`; counter `paths`),
+    `cluster.split` (`split_into_subpaths`; counter `alleles`, those kept)
+    and `cluster.components` (placing the alleles in components and the
+    sweep of components left without one)."""
     if allele_counts is None:
         allele_counts = {}
     clustered_reads: dict = {}
@@ -881,53 +889,59 @@ def assign_reads_to_genes(
         nodeHashesOfInterest = [n.hash for n in nodesOfInterest]
         if not nodeHashesOfInterest:
             continue
-        reads_with_gene = graph.collect_reads_in_path(nodeHashesOfInterest)
-        node_index = construct_node_index(
-            {r: graph.get_readNodes()[r] for r in reads_with_gene}
-        )
-        # dedup the gene-call subset ahead of the index build: one
-        # representative (and its reverse) per distinct call sequence, with
-        # its read count as the support weight — sublist support counting
-        # then scales with distinct sequences, not reads
-        reads_map = graph.get_reads()
-        call_groups: dict = {}
-        for r in reads_with_gene:
-            call_groups.setdefault(tuple(reads_map[r]), []).append(r)
-        gene_call_subset: dict = {}
-        gene_multiplicity: dict = {}
-        for key, mem in call_groups.items():
-            rep = mem[0]
-            rv = rc_cache.get(key)
-            if rv is None:
-                rv = graph.reverse_list_of_genes(list(key))
-                rc_cache[key] = rv
-            gene_call_subset[rep] = list(key)
-            gene_call_subset[rep + "_reverse"] = rv
-            gene_multiplicity[rep] = len(mem)
-        pathsOfInterest, pathCoverages = get_paths_for_gene(
-            graph,
-            node_index,
-            gene_call_subset,
-            nodeHashesOfInterest,
-            mean_node_coverage / 20,
-            geneOfInterest,
-            gene_multiplicity=gene_multiplicity,
-        )
-        finalAllelesOfInterest, path_reads = split_into_subpaths(
-            graph, geneOfInterest, pathsOfInterest, pathCoverages, path_reads,
-            mean_node_coverage,
-            candidate_reads=candidates_by_gene[geneOfInterest],
-        )
-        assign_final_alleles_to_components(
-            graph, finalAllelesOfInterest, clustered_reads, allele_counts,
-            geneOfInterest,
-        )
-        component_nodeHashesOfInterest: dict = {}
-        for n in nodeHashesOfInterest:
-            comp = graph.get_node_by_hash(n).component
-            component_nodeHashesOfInterest.setdefault(comp, set()).add(n)
-        collect_component_missed_genes(
-            graph, component_nodeHashesOfInterest, clustered_reads, allele_counts,
-            geneOfInterest, path_reads,
-        )
+        TIMER.count("genes")
+        with TIMER.span("cluster.gene_paths"):
+            reads_with_gene = graph.collect_reads_in_path(nodeHashesOfInterest)
+            node_index = construct_node_index(
+                {r: graph.get_readNodes()[r] for r in reads_with_gene}
+            )
+            # dedup the gene-call subset ahead of the index build: one
+            # representative (and its reverse) per distinct call sequence,
+            # with its read count as the support weight — sublist support
+            # counting then scales with distinct sequences, not reads
+            reads_map = graph.get_reads()
+            call_groups: dict = {}
+            for r in reads_with_gene:
+                call_groups.setdefault(tuple(reads_map[r]), []).append(r)
+            gene_call_subset: dict = {}
+            gene_multiplicity: dict = {}
+            for key, mem in call_groups.items():
+                rep = mem[0]
+                rv = rc_cache.get(key)
+                if rv is None:
+                    rv = graph.reverse_list_of_genes(list(key))
+                    rc_cache[key] = rv
+                gene_call_subset[rep] = list(key)
+                gene_call_subset[rep + "_reverse"] = rv
+                gene_multiplicity[rep] = len(mem)
+            pathsOfInterest, pathCoverages = get_paths_for_gene(
+                graph,
+                node_index,
+                gene_call_subset,
+                nodeHashesOfInterest,
+                mean_node_coverage / 20,
+                geneOfInterest,
+                gene_multiplicity=gene_multiplicity,
+            )
+            TIMER.count("paths", len(pathsOfInterest))
+        with TIMER.span("cluster.split"):
+            finalAllelesOfInterest, path_reads = split_into_subpaths(
+                graph, geneOfInterest, pathsOfInterest, pathCoverages, path_reads,
+                mean_node_coverage,
+                candidate_reads=candidates_by_gene[geneOfInterest],
+            )
+            TIMER.count("alleles", len(finalAllelesOfInterest))
+        with TIMER.span("cluster.components"):
+            assign_final_alleles_to_components(
+                graph, finalAllelesOfInterest, clustered_reads, allele_counts,
+                geneOfInterest,
+            )
+            component_nodeHashesOfInterest: dict = {}
+            for n in nodeHashesOfInterest:
+                comp = graph.get_node_by_hash(n).component
+                component_nodeHashesOfInterest.setdefault(comp, set()).add(n)
+            collect_component_missed_genes(
+                graph, component_nodeHashesOfInterest, clustered_reads,
+                allele_counts, geneOfInterest, path_reads,
+            )
     return clustered_reads, path_reads

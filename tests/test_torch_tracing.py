@@ -10,6 +10,9 @@ tiny isolate through the CLI's SAM route every top-level phase of the run
 appears, cleaning holds its `clean.*` spans, and the consensus QC holds
 `align.*` spans whose `align.kernels` counters equal the launches' own
 inputs and outputs, recorded around `sw_batch.sw_dp`/`sw_traceback`.
+Path clustering opens `cluster.gene_paths`, `cluster.split` and
+`cluster.components` for each AMR gene, with the counters `genes`, `paths`
+and `alleles`, and synchronises nothing.
 
 Tolerance: zero; counts are compared exactly.
 """
@@ -21,10 +24,13 @@ import json
 import os
 import sys
 import threading
+import time
 
 import pytest
 import torch
 
+from amira_tpu_torch import cluster
+from amira_tpu_torch.graph import GeneMerGraph
 from amira_tpu_torch.ops import sw_batch
 from amira_tpu_torch.tracing import TIMER
 from synthetic import make_isolate
@@ -184,6 +190,47 @@ def test_spans_share_the_profilers_clock():
         assert e.start_ns() + e.duration_ns() <= s["end_ns"]
 
 
+def array_graph():
+    """A graph of two contexts of one AMR array (amrA, amrB), the second
+    with amrC after it: reads and positions as pandora's JSON gives them."""
+    arr = ["+amrA", "+amrB"]
+    reads = {}
+    for i in range(6):
+        reads[f"r{i}"] = ["+g1", "-g2", "+g3", "+g4"] + arr + ["+g5", "-g6"]
+        reads[f"s{i}"] = ["+g9", "-g10", "+g11", "+g12"] + arr + ["+amrC", "+g13", "-g14"]
+    positions = {r: [(j * 100, j * 100 + 99) for j in range(len(g))] for r, g in reads.items()}
+    return GeneMerGraph(reads, 3, positions, device="cpu")
+
+
+def test_path_clustering_spans_nest_count_and_never_synchronise(monkeypatch):
+    graph = array_graph()
+    syncs = []
+    monkeypatch.setattr(TIMER, "_sync", lambda: syncs.append(1))
+    TIMER.reset(None)
+    t0 = time.time_ns()
+    with TIMER.phase("path_clustering"):
+        clustered, _path_reads = cluster.assign_reads_to_genes(
+            graph, ["amrC", "amrA", "amrB", "absent"], 1, {}, graph.get_mean_node_coverage()
+        )
+    t1 = time.time_ns()
+    assert len(syncs) == 2  # the phase's two edges, and no span
+    (p,) = TIMER.phases
+    _stamped_inside(p)
+    assert t0 <= p["start_ns"] <= p["end_ns"] <= t1
+    # one gene at a time, in sorted order; a gene with no node opens none
+    assert p["counters"] == {"genes": 3}
+    names = ["cluster.gene_paths", "cluster.split", "cluster.components"]
+    assert [s["span"] for s in p["spans"]] == names * 3
+    paths = [s["counters"]["paths"] for s in p["spans"][0::3]]
+    alleles = [s["counters"]["alleles"] for s in p["spans"][1::3]]
+    assert paths == [2, 2, 1] and alleles == [2, 2, 1]
+    assert "counters" not in p["spans"][2]
+    # every allele kept is placed in a component, and no component is left
+    # for the sweep to fill
+    placed = [a for comp in clustered.values() for by_gene in comp.values() for a in by_gene]
+    assert len(placed) == sum(alleles) == 5
+
+
 def _bounds():
     """The benchmark's `bounds.py` (live cells of a sw_dp launch)."""
     spec = importlib.util.spec_from_file_location(
@@ -267,6 +314,21 @@ def test_cleaning_trim_and_copy_number_hold_their_stage_spans(sam_run):
     assert [s["span"] for s in cn["spans"]] == [
         "copy_number.path_fastqs", "copy_number.count", "copy_number.queries"
     ]
+
+
+def test_path_clustering_holds_its_spans_and_the_table_prints_them(sam_run):
+    phases, _launches, err = sam_run
+    (clustering,) = [p for p in phases if p["phase"] == "path_clustering"]
+    names = [s["span"] for s in clustering["spans"]]
+    genes = clustering["counters"]["genes"]
+    assert genes >= 1
+    assert names == ["cluster.gene_paths", "cluster.split", "cluster.components"] * genes
+    assert all("paths" in s["counters"] for s in _spans(clustering, "cluster.gene_paths"))
+    assert all("alleles" in s["counters"] for s in _spans(clustering, "cluster.split"))
+    table = err[err.index("amira-tpu phase timings:"):]
+    assert "\n  path_clustering " in table
+    for name in ("cluster.gene_paths", "cluster.split", "cluster.components"):
+        assert f"\n    {name}" in table
 
 
 def test_qc_align_spans_count_the_launches_work(sam_run):
