@@ -29,9 +29,11 @@ the batches' `jobs` add up to), then per batch `align.pack` (the job
 arrays), `align.kernels` (the DP and traceback and the copies back, the
 host waiting for the card) and `align.unpack` (the CIGARs), and last
 `align.stitch` (z-drop split and stitch; `map_with_diagonals` has the
-batches and the stitch). `align.kernels` counts the batch's `launches`
-(one `sw_cigar`: one sw_dp and one sw_traceback launch), `jobs`,
-`live_cells` (query bases x band width, the DP's cells) and `tb_steps`
+batches and the stitch). A job carries only the query rows its band can
+reach (`_run_jobs`). `align.kernels` counts the batch's `launches` (one
+`sw_cigar`: one sw_dp and one sw_traceback launch), `jobs`, `rows_full`
+(the jobs' whole query lengths), `rows_kept` (the query rows sent),
+`live_cells` (rows sent x band width, the DP's cells) and `tb_steps`
 (the traceback walks' steps), from host arrays the batch holds.
 """
 
@@ -183,7 +185,7 @@ def _bucket(n: int, minimum: int = 64) -> int:
     """Query-length bucket: the next power of two, refined to quarter steps
     (the JAX package's CPU-backend ladder, used here on every device: the
     port has no compile cost per shape, and the bucket feeds the band
-    clamp in `_run_batch`, so this keeps alignments equal to the JAX
+    clamp in `_run_jobs`, so this keeps alignments equal to the JAX
     package run on the CPU)."""
     b = minimum
     while b < n:
@@ -678,26 +680,52 @@ class Aligner:
         return jobs
 
     def _run_jobs(self, jobs):
-        """Execute alignment jobs grouped by query-length bucket, in chunks
-        whose uint8 traceback (lq * W bytes per job) stays within 1 GiB."""
+        """Execute alignment jobs on the query rows their bands can reach,
+        grouped by the bucket of that window's length, in chunks whose uint8
+        traceback (lq * W bytes per job) stays within 1 GiB.
+
+        The band start is clamped with the bucket of the whole query, where
+        the JAX package puts it. Band lane w of query row i is reference
+        column i + dlo + w, so only rows i0 .. i1 - 1 can meet the
+        reference; the others hold no reference column, can neither raise
+        the best cell nor be reached by the traceback, and are left out (a
+        job without such rows aligns nowhere and is not launched).
+
+        The alignments come back in the JAX package's order, which ties
+        between strands and pieces follow: by the whole query's bucket, in
+        the order the buckets first appear, then in job order."""
         W = self.band_width
         out = []
         by_bucket: dict = {}
-        for job in jobs:
-            lq = _bucket(len(job[2]))
-            by_bucket.setdefault(lq, []).append(job)
+        first_seen: dict = {}
+        for k, job in enumerate(jobs):
+            qlen = len(job[2])
+            lr = len(self.ref_codes[job[0][1]])
+            full = _bucket(qlen)
+            # clamp band start: diagonals from "whole query before ref" to
+            # "band starts at the last ref base"
+            dlo = min(max(job[3] - W // 2, 1 - full), max(lr - 1, 0))
+            i0, i1 = max(0, 1 - W - dlo), min(qlen, lr - dlo)
+            order = (first_seen.setdefault(full, len(first_seen)), k)
+            if i1 > i0:
+                by_bucket.setdefault(_bucket(i1 - i0), []).append((job, dlo, i0, i1, order))
         budget = 1 << 30
         for lq, bucket_jobs in by_bucket.items():
             chunk = max(1, budget // (lq * W))
             for c0 in range(0, len(bucket_jobs), chunk):
                 self._run_batch(bucket_jobs[c0 : c0 + chunk], lq, W, out)
-        return out
+        out.sort(key=lambda o: o[0])
+        return [aln for _order, aln in out]
 
     def _run_batch(self, batch, lq, W, out):
+        """One launch of `sw_cigar` over `batch` = [(job, dlo, i0, i1,
+        order)]: each job's query rows i0 .. i1 - 1 with the band start
+        dlo + i0, its alignment shifted back to whole-query coordinates and
+        appended to `out` beside `order`."""
         from .sw_batch import sw_cigar
 
         with TIMER.span("align.pack"):
-            lr_max = max(len(self.ref_codes[j[0][1]]) for j in batch)
+            lr_max = max(len(self.ref_codes[j[0][0][1]]) for j in batch)
             P = W + lq  # real-ref offset inside the padded buffer
             # the band reads reference bytes up to index lr + 2W + 2lq - 3
             rlen = lr_max + 2 * W + 2 * lq
@@ -706,17 +734,14 @@ class Aligner:
             rs_a = np.full((B, rlen), 4, dtype=np.uint8)
             qlens_a = np.empty(B, np.int32)
             dlos_a = np.empty(B, np.int32)
-            for bidx, (tag, strand, qseq, diag) in enumerate(batch):
-                qc = encode_dna(qseq)
-                qs_a[bidx, : len(qc)] = qc
+            rows_full = 0
+            for bidx, ((tag, _strand, qseq, _diag), dlo, i0, i1, _order) in enumerate(batch):
+                qs_a[bidx, : i1 - i0] = encode_dna(qseq[i0:i1])
                 rc = self.ref_codes[tag[1]]
                 rs_a[bidx, P : P + len(rc)] = rc
-                qlens_a[bidx] = len(qc)
-                # clamp band start: diagonals from "whole query before ref" to
-                # "band starts at the last ref base"
-                dlos_a[bidx] = int(
-                    np.clip(diag - W // 2, -(lq - 1), max(len(rc) - 1, 0))
-                )
+                qlens_a[bidx] = i1 - i0
+                dlos_a[bidx] = dlo + i0
+                rows_full += len(qseq)
         dev = self.device
         with TIMER.span("align.kernels"):
             packed, n_steps, q0s, r0s, best, bi, bw = (
@@ -727,20 +752,23 @@ class Aligner:
                     W,
                 )
             )
+            rows_kept = int(qlens_a.sum())
             TIMER.count("launches")
             TIMER.count("jobs", B)
-            TIMER.count("live_cells", int(qlens_a.sum()) * W)
+            TIMER.count("rows_full", rows_full)
+            TIMER.count("rows_kept", rows_kept)
+            TIMER.count("live_cells", rows_kept * W)
             TIMER.count("tb_steps", int(n_steps.sum()))
         with TIMER.span("align.unpack"):
-            for bidx, (tag, strand, qseq, _diag) in enumerate(batch):
+            for bidx, ((tag, strand, qseq, _diag), _dlo, i0, _i1, order) in enumerate(batch):
                 if bi[bidx] < 0 or best[bidx] <= 0:
                     continue
                 cigar = _unpack_cigar(packed[bidx], int(n_steps[bidx]))
                 if not cigar:
                     continue
                 aln = Alignment(
-                    q_start=int(q0s[bidx]),
-                    q_end=int(bi[bidx]) + 1,
+                    q_start=int(q0s[bidx]) + i0,
+                    q_end=int(bi[bidx]) + 1 + i0,
                     r_start=int(r0s[bidx]),
                     r_end=int(bi[bidx]) + int(dlos_a[bidx]) + int(bw[bidx]) + 1,
                     score=int(best[bidx]),
@@ -748,7 +776,7 @@ class Aligner:
                     q_len=len(qseq),
                     r_len=len(self.ref_codes[tag[1]]),
                 )
-                out.append((tag, strand, qseq, aln))
+                out.append((order, (tag, strand, qseq, aln)))
 
     def map_reads(self, reads: dict[str, str], min_seeds: int = 2, ref_subsets=None):
         """Map many reads in shared batched kernel launches; returns

@@ -10,11 +10,18 @@ Run from the root of a checkout. Phases, each printing its own lines:
    ptxas's register and spill report.
 2. Kernels against their plain PyTorch versions on the card, exactly, at
    the test shapes (the last with padded jobs, query lengths 1 and < W/32,
-   strongly negative diagonals and a ragged last block) and at the
+   strongly negative diagonals and a ragged last block), at the
    production shapes: the two large sw_dp launches of the 50k-read main
-   path, (B, Lq) = (980, 1024) and (490, 1024), and (512, 2048), all at
-   W=256, each with CUDA-event times of both and each kernel's bound. The
-   traceback is timed as the main path calls it, each launch right after a
+   path while each job sent its whole query, (B, Lq) = (980, 1024) and
+   (490, 1024), and (512, 2048), and at the window shapes: the launches
+   that fill the 1 GiB traceback budget now that each job sends only the
+   query rows its band can reach (`Aligner._run_jobs`), (2730, 1536) for
+   951-bp genes (the benchmark's SAM cell) and (5461, 768) for the 400-bp
+   genes of phase 4's isolate (phase 5b), laid out as the aligner lays
+   them out (most jobs inside their read, band start 1 - W and lr + W - 1
+   rows; some at the read's first row, some ending inside the gene); all
+   at W=256, each with CUDA-event times of both and each kernel's bound.
+   The traceback is timed as the main path calls it, each launch right after a
    fresh sw_dp on the same inputs, beside its longest walk, its time per
    step of that walk and its re-stages per walk. sw_traceback is then held
    to its plain version on random traceback bytes (long gap runs, clamped
@@ -36,6 +43,8 @@ Run from the root of a checkout. Phases, each printing its own lines:
    one amrY row matching allele NG001 at >= 99% identity, every kernel of
    the path must have launched, the large graph build must have hashed its
    windows on the card and the dense k-mer table must have lived there.
+   The inputs of the run's largest sw_cigar launch are kept, and both
+   kernels must equal their plain versions on them (every CIGAR too).
 5. The single-isolate features beyond the main path, with --device cuda:
    a. the kernels' W = 512 instances (the path assembly's polishing band):
       ptxas's registers and spills, both kernels exact against their plain
@@ -49,7 +58,9 @@ Run from the root of a checkout. Phases, each printing its own lines:
       device memory, the QC's jobs and the seconds of its seeding and its
       alignment, the kernel wrappers' spans on the stream, sw_dp launches
       by (B, Lq, W), and the seeding of the first read timed against a
-      per-gene loop; the rows must be phase 4's;
+      per-gene loop; the rows must be phase 4's, and both kernels must
+      equal their plain versions on the inputs of the run's largest
+      launch, as in phase 4;
    c. --assemble-paths' assembly (`assemble_full_length_paths`) of phase
       4's path reads on the card: every path must give a contig;
    d. --assembly, --meta and --promoter-mutations on their small isolates
@@ -117,8 +128,9 @@ Run from the root of a checkout. Phases, each printing its own lines:
 The next-to-last lines are the card line and one JSON object describing
 each kernel; the last line is {"ok": true, "device": {...}}. Any failed
 phase exits non-zero without that line, as does a machine without CUDA.
-The kernels JSON line reports each kernel at the main path's largest
-launch, (B, Lq, W) = (980, 1024, 256), with its launches on the main path
+The kernels JSON line reports each kernel at MAIN_SHAPE, the largest
+launch of the default (SAM) route's consensus QC on 951-bp genes, (B, Lq,
+W) = (2730, 1536, 256), with its launches on the main path
 (phase 4), on the SAM route (5b), in the path assembly (5c), in each
 batch (6a, summed over its isolates), in the accuracy run on the card (8a)
 and in scale_run's (8b), and its W = 512 checks and time (5a). Data,
@@ -145,15 +157,21 @@ GOLDEN = os.path.join(ROOT, "tests", "goldens", "amira_results_seed7.tsv")
 
 # (W, Lq, B): the CPU tests' shapes, the last planting the DP kernel's edge
 # cases; the production shapes, timed: the 50k-read main path's two large
-# sw_dp launches and the shape the earlier kernels were timed at. The kernels
-# JSON line reports MAIN_SHAPE, the main path's largest launch.
+# sw_dp launches while each job sent its whole query, and the shape the
+# earlier kernels were timed at; the window shapes, timed, with jobs laid out
+# as `Aligner._run_jobs` sends them: each query the rows its band can reach,
+# lr + W - 1 at most, bucketed (1,206 rows of a 951-bp gene -> 1,536; 655
+# of a 400-bp gene -> 768) and chunked to the 1 GiB traceback budget. The
+# kernels JSON line reports MAIN_SHAPE, the largest launch of the default
+# (SAM) route's consensus QC on 951-bp genes.
 TEST_SHAPES = [(64, 128, 24), (128, 256, 9), (256, 192, 37)]
 EDGE_SHAPE = (256, 192, 37)
 PROD_SHAPES = [(256, 1024, 980), (256, 1024, 490), (256, 2048, 512)]
-MAIN_SHAPE = (256, 1024, 980)
+WINDOW_SHAPES = [(256, 1536, 2730), (256, 768, 5461)]
+MAIN_SHAPE = (256, 1536, 2730)
 SWEEP_B = (128, 512, 1024, 2048)  # sw_dp at Lq=2048, W=256
-# (W, Lq, B) of the random-byte traceback checks: the CPU test's and one near
-# the main path's largest launch
+# (W, Lq, B) of the random-byte traceback checks: the CPU test's and the
+# main path's largest launch while each job sent its whole query
 RANDOM_SHAPES = [(64, 96, 40), (256, 192, 24), (256, 1024, 980)]
 # (W, Lq, B) of phase 5a's checks of the W = 512 instances (the assembly's
 # polishing band): the edge batch and random traceback bytes
@@ -208,12 +226,44 @@ def fail(msg: str):
     sys.exit(1)
 
 
-def sw_inputs(W, Lq, B, seed, device, min_len=8, edges=False):
+def window_job(rng, W, Lq, b):
+    """(query, reference, band start) of one job as `Aligner._run_jobs`
+    sends it: the rows of a longer read that the band can reach, against a
+    gene of Lq/2 .. Lq - W + 1 bases. Most jobs lie inside their read: the
+    band starts at 1 - W and the query holds lr + W - 1 rows, the gene at
+    lane W/2 (+-16) of the band; every sixth read starts inside the gene
+    (the window starts at row 0), every seventh ends inside it, every fifth
+    query is unrelated to its gene."""
+    import numpy as np
+    from synthetic import mutate_fast
+
+    def rand(n):
+        return rng.randint(0, 4, size=n).astype(np.uint8)
+
+    lr = rng.randint(Lq // 2, Lq - W + 2)
+    r = rand(lr)
+    jitter = rng.randint(-16, 17)
+    if b % 6 == 5:
+        cut = rng.randint(1, lr // 2)
+        q = np.concatenate([mutate_fast(rng, r[cut:], sub=0.02, indel=0.02), rand(Lq)])
+        dlo = cut - W // 2 + jitter
+        n = lr - dlo
+    else:
+        q = np.concatenate([rand(W // 2 - 1 + jitter), mutate_fast(rng, r, sub=0.02, indel=0.02), rand(Lq)])
+        dlo = 1 - W
+        n = lr + W - 1 if b % 7 != 6 else rng.randint(W, lr + W - 1)
+    if b % 5 == 4:
+        q = rand(n)
+    return q[:n], r, dlo
+
+
+def sw_inputs(W, Lq, B, seed, device, min_len=8, edges=False, window=False):
     """A batch of alignment jobs laid out as the aligner lays them out:
     noisy query/reference pairs (2% substitutions, 2% indels), every fifth
     pair unrelated, band diagonals near the aligner's placement (-W/2) or
     random, and three padded (empty) lanes. `edges` plants query lengths 1,
-    W/32 - 1 and 3 and two strongly negative diagonals."""
+    W/32 - 1 and 3 and two strongly negative diagonals. `window` makes each
+    job a window of a longer read instead (`window_job`)."""
     import numpy as np
     import torch
     from synthetic import mutate_fast
@@ -226,6 +276,12 @@ def sw_inputs(W, Lq, B, seed, device, min_len=8, edges=False):
     qlens = np.zeros(B, np.int32)
     dlos = np.zeros(B, np.int32)
     for b in range(B - 3):
+        if window:
+            q, r, dlos[b] = window_job(rng, W, Lq, b)
+            qs[b, : len(q)] = q
+            rs[b, P : P + len(r)] = r
+            qlens[b] = len(q)
+            continue
         n = rng.randint(min_len, Lq + 1)
         q = rng.randint(0, 4, size=n).astype(np.uint8)
         if b % 5 == 4:
@@ -346,7 +402,7 @@ def dp_diff(got, ref, qlens) -> int:
     return max_abs_diff([(got[0][live], ref[0][live])] + list(zip(got[1:], ref[1:])))
 
 
-def check_shape(W, Lq, B, device, label, min_len=8, edges=False):
+def check_shape(W, Lq, B, device, label, min_len=8, edges=False, window=False):
     """Both kernels (apart, and fused with their CIGARs decoded) against
     their plain versions on one sw_inputs batch, exactly; fails on any
     difference. Returns (inputs, {kernel name: max_abs_err}, restages,
@@ -356,7 +412,7 @@ def check_shape(W, Lq, B, device, label, min_len=8, edges=False):
     from amira_tpu_torch.ops.align import _unpack_cigar
 
     qs, rs, qlens, dlos = sw_inputs(
-        W, Lq, B, seed=Lq + B, device=device, min_len=min_len, edges=edges
+        W, Lq, B, seed=Lq + B, device=device, min_len=min_len, edges=edges, window=window
     )
     plain_ms = {}
     tb, best, bi, bw, bs = sw_batch.sw_dp(qs, rs, qlens, dlos, W)
@@ -398,18 +454,78 @@ def check_shape(W, Lq, B, device, label, min_len=8, edges=False):
     return (qs, rs, qlens, dlos), errs, restages, r_n, plain_ms
 
 
+class LargestLaunch:
+    """While active, keeps a copy of the inputs of the largest sw_cigar
+    launch (by B x Lq, the first of equal ones) that the aligner makes."""
+
+    def __init__(self):
+        from amira_tpu_torch.ops import sw_batch
+
+        self.sw_batch = sw_batch
+        self.size = 0
+        self.inputs = None
+
+    def __enter__(self):
+        real = self.saved = self.sw_batch.sw_cigar
+
+        def recorded(qs, rs, qlens, dlos, W):
+            if qs.numel() > self.size:
+                self.size = qs.numel()
+                self.inputs = (qs.clone(), rs.clone(), qlens.clone(), dlos.clone(), W)
+            return real(qs, rs, qlens, dlos, W)
+
+        self.sw_batch.sw_cigar = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.sw_batch.sw_cigar = self.saved
+        return False
+
+    def check(self, label):
+        """Both kernels (fused, as the aligner calls them) against their
+        plain versions on the kept launch, exactly, every decoded CIGAR
+        equal; fails on any difference. Returns its (B, Lq, W)."""
+        from amira_tpu_torch.ops.align import _unpack_cigar
+
+        if self.inputs is None:
+            fail(f"{label}: no sw_cigar launch to check")
+        qs, rs, qlens, dlos, W = self.inputs
+        B, Lq = qs.shape
+        got = self.sw_batch.sw_cigar(qs, rs, qlens, dlos, W)
+        ref = self.sw_batch.sw_cigar_reference(qs, rs, qlens, dlos, W)
+        err = max_abs_diff(list(zip(got, ref)))
+        packed, n_steps = got[0].cpu().numpy(), got[1].cpu().numpy()
+        r_packed, r_n = ref[0].cpu().numpy(), ref[1].cpu().numpy()
+        n_cigars = 0
+        for j in range(B):
+            a, b = _unpack_cigar(packed[j], int(n_steps[j])), _unpack_cigar(r_packed[j], int(r_n[j]))
+            if a != b:
+                fail(f"{label}: decoded CIGAR of job {j} differs in the largest launch {(B, Lq, W)}")
+            n_cigars += bool(a)
+        print(
+            f"{label} largest launch (B={B}, Lq={Lq}, W={W}, {int(qlens.sum())} query rows, "
+            f"longest {int(qlens.max())}): sw_cigar max_abs_err {err} against its plain "
+            f"version, {n_cigars} CIGARs equal"
+        )
+        if err:
+            fail(f"{label}: sw_cigar differs from its plain version in the largest launch {(B, Lq, W)}")
+        return [B, Lq, W]
+
+
 def check_kernels(device):
     """Phase 2: each kernel against its plain version on the same inputs at
-    every shape, timed at PROD_SHAPES; then the sw_dp sweep. Returns
+    every shape, timed at PROD_SHAPES and WINDOW_SHAPES; then the sw_dp
+    sweep. Returns
     ({(W, Lq, B): {kernel name: its JSON fields measured there}}, sweep
     rows)."""
     errs = {"sw_dp": 0, "sw_traceback": 0}
     timed = {}
-    for W, Lq, B in TEST_SHAPES + PROD_SHAPES:
-        prod = (W, Lq, B) in PROD_SHAPES
+    for W, Lq, B in TEST_SHAPES + PROD_SHAPES + WINDOW_SHAPES:
+        window = (W, Lq, B) in WINDOW_SHAPES
+        prod = window or (W, Lq, B) in PROD_SHAPES
         inputs, shape_errs, restages, r_n, _ = check_shape(
             W, Lq, B, device, "phase 2", min_len=3 * Lq // 4 if prod else 8,
-            edges=(W, Lq, B) == EDGE_SHAPE,
+            edges=(W, Lq, B) == EDGE_SHAPE, window=window,
         )
         for name, e in shape_errs.items():
             errs[name] = max(errs[name], e)
@@ -760,9 +876,10 @@ def run_main_path(files, device):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    run_cli(cli_args(files, out, device))
-    torch.cuda.synchronize()
-    wall_s = time.time() - t0
+    with LargestLaunch() as largest:
+        run_cli(cli_args(files, out, device))
+        torch.cuda.synchronize()
+        wall_s = time.time() - t0
     launches = dict(sw_batch.LAUNCHES)
     dp_shapes = [[B, Lq, W, n] for (B, Lq, W), n in sw_batch.DP_SHAPES.items()]
     peak = torch.cuda.max_memory_allocated()
@@ -777,6 +894,7 @@ def run_main_path(files, device):
         f"sorted tables {kmer.SORTED_TABLES}"
     )
     print(f"phase 4 sw_dp launches by shape (B, Lq, W, launches): {dp_shapes}")
+    largest_launch = largest.check("phase 4")
     rows = check_scale_rows(out, "phase 4")
     for name, n in launches.items():
         if n <= 0:
@@ -792,6 +910,7 @@ def run_main_path(files, device):
         "peak_device_memory_bytes": peak,
         "launches": launches,
         "dp_shapes": dp_shapes,
+        "largest_launch": largest_launch,
         "window_hash_runs": dict(graph_tables.DEVICE_RUNS),
         "dense_tables": dict(kmer.DENSE_TABLES),
         "sorted_tables": dict(kmer.SORTED_TABLES),
@@ -1114,7 +1233,7 @@ def run_sam_route(files, n_reads, device):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    with KernelClock() as clock:
+    with KernelClock() as clock, LargestLaunch() as largest:
         run_cli(argv)
         torch.cuda.synchronize()
         wall_s = time.time() - t0
@@ -1160,6 +1279,7 @@ def run_sam_route(files, n_reads, device):
         f"{span_ms['sw_traceback']:.1f} ms, {100 * sum(span_ms.values()) / (1e3 * wall_s):.2f} % of the wall"
     )
     print(f"phase 5b sw_dp launches by shape (B, Lq, W, launches): {dp_shapes}")
+    largest_launch = largest.check("phase 5b")
     rows = check_scale_rows(out, "phase 5b")
     loop_ms, index_ms, seed_jobs = time_seeding(consensus, fastq, SEEDING_READS, device)
     print(
@@ -1178,7 +1298,7 @@ def run_sam_route(files, n_reads, device):
     return {
         "reads": n, "wall_seconds": wall_s, "ms_per_read": 1e3 * wall_s / n,
         "peak_device_memory_bytes": peak, "launches": launches, "dp_shapes": dp_shapes,
-        "span_ms": span_ms, "qc": qc, "phases": phases, "rows": rows,
+        "largest_launch": largest_launch, "span_ms": span_ms, "qc": qc, "phases": phases, "rows": rows,
     }
 
 

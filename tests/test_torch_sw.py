@@ -7,7 +7,9 @@ run in interpret mode (`pallas_sw_cigar(..., interpret=True)`), on the
 generator of tests/test_pallas_sw.py: noisy pairs at varied lengths,
 strongly negative band diagonals, unrelated pairs and padded lanes. The
 port's Aligner returns the same Alignments as the JAX Aligner under the XLA
-engine. On a CUDA device, the kernels are held to the plain versions.
+engine, also on reads 10-20x longer than their genes, where each of its jobs
+carries only the query rows its band can reach. On a CUDA device, the
+kernels are held to the plain versions.
 
 The CUDA DP cannot run here, so a NumPy model of how it computes (one warp
 per job, lane l holding band lanes l*S .. l*S+S-1) is held to the plain
@@ -619,6 +621,108 @@ def test_aligner_map_reads_and_diagonals_match_jax(monkeypatch):
         port_al.map_with_diagonals(dict(reads), targets),
         jax_al.map_with_diagonals(dict(reads), targets),
     )
+
+
+def _rc(seq):
+    return seq.translate(str.maketrans("ACGTN", "TGCAN"))[::-1]
+
+
+def _long_read_case(case):
+    """(references, reads, band targets) of one shape of reads 10-20x longer
+    than the genes: the band reaches a short window of each job's rows.
+    `targets` is None where the polish loop's targets (from the JAX hits)
+    are used; else explicit band placements for `map_with_diagonals`."""
+    rng = np.random.RandomState(sum(map(ord, case)))
+    bases = np.array(list("ACGT"))
+
+    def rand(n):
+        return "".join(rng.choice(bases, size=n))
+
+    def noisy(seq):
+        s = list(seq)
+        for j in range(5, len(s), 23):
+            s[j] = str(rng.choice(bases))
+        return "".join(s)
+
+    refs = {"geneA": rand(200), "geneB": rand(160)}
+    a, b = refs["geneA"], refs["geneB"]
+    targets = None
+    if case in ("middle", "middle_minus"):
+        reads = {"r0": rand(1400) + noisy(a) + rand(1500), "r1": rand(2500) + noisy(b) + rand(900)}
+    elif case in ("start", "start_minus"):  # the gene runs off row 0
+        reads = {"r0": noisy(a[70:]) + rand(2900), "r1": rand(20) + noisy(b) + rand(3300)}
+    elif case in ("end", "end_minus"):  # the gene runs off the last row
+        reads = {"r0": rand(2900) + noisy(a[:150]), "r1": rand(3700) + noisy(b) + rand(15)}
+    elif case == "two_copies":  # two chains of one read, two windows
+        reads = {"r0": rand(300) + noisy(a) + rand(1500) + noisy(a) + rand(900) + noisy(b)}
+    elif case == "strand_tie":
+        # r1 holds geneA at its start and its reverse complement inside: the
+        # two strands score alike, and the + strand's window (it runs off
+        # row 0) falls in a smaller bucket than the - strand's, which r0's
+        # job opens first; the JAX package keeps the + strand
+        reads = {"r0": rand(1400) + noisy(a) + rand(1500), "r1": a + rand(1500) + _rc(a) + rand(1400)}
+    elif case == "with_n":
+        read = list(rand(1800) + noisy(a) + rand(1200))
+        for j in (3, 900, 1830, 1901, 1950, 2600):
+            read[j] = "N"
+        reads = {"r0": "".join(read)}
+    elif case == "clamps":
+        # 3,072 rows, a bucket of its own: the low clamp (1 - 3072) leaves
+        # the last 64 rows, which hold geneA's head; past the high clamp the
+        # band starts at geneB's last base and keeps row 0 alone
+        reads = {"low": rand(3012) + a[:60], "high": b[-1] + rand(2999)}
+        targets = {"low": ("geneA", "+", -10**6), "high": ("geneB", "+", 10**6)}
+    elif case == "empty_window":
+        # 2,100 rows in the 3,072 bucket: at the low clamp the band reaches
+        # the reference only past the read's end
+        reads = {"r0": rand(2100)}
+        targets = {"r0": ("geneA", "+", -10**6)}
+    if case.endswith("_minus"):
+        reads = {rid: _rc(seq) for rid, seq in reads.items()}
+    return refs, reads, targets
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["middle", "middle_minus", "start", "start_minus", "end", "end_minus",
+     "two_copies", "strand_tie", "with_n", "clamps", "empty_window"],
+)
+def test_aligner_on_long_reads_matches_jax(case, monkeypatch):
+    """Reads 10-20x longer than their genes, where each job carries only the
+    query rows its band reaches: every Alignment of map_reads and of
+    map_with_diagonals equals the JAX package's, which runs every row."""
+    monkeypatch.setenv("AMIRA_TPU_SW_ENGINE", "xla")
+    refs, reads, targets = _long_read_case(case)
+    W = 64
+    jax_al = JaxAligner(refs, band_width=W)
+    port_al = PortAligner(refs, band_width=W, device="cpu")
+    sent = []
+    real = sw_batch.sw_cigar
+
+    def sw_cigar(qs, rs, qlens, dlos, W):
+        sent.extend(qlens.tolist())
+        return real(qs, rs, qlens, dlos, W)
+
+    monkeypatch.setattr(sw_batch, "sw_cigar", sw_cigar)
+    if targets is None:
+        jax_hits = jax_al.map_reads(dict(reads))
+        _assert_same_alignments(port_al.map_reads(dict(reads)), jax_hits)
+        assert sum(len(h) for h in jax_hits.values()) >= len(reads)
+        targets = {
+            rid: (name, strand, aln.r_start - aln.q_start + 5)
+            for rid, h in jax_hits.items()
+            for name, (strand, aln) in h.items()
+        }
+    got = port_al.map_with_diagonals(dict(reads), targets)
+    _assert_same_alignments(got, jax_al.map_with_diagonals(dict(reads), targets))
+    # no job sent more rows than its band can reach
+    assert all(0 < n <= max(map(len, refs.values())) + W - 1 for n in sent)
+    if case == "strand_tie":
+        assert got["r1"]["geneA"][0] == "+"
+    if case == "clamps":
+        assert got.keys() == {"low", "high"} and sorted(sent) == [1, 64]
+    if case == "empty_window":
+        assert got == {} and sent == []
 
 
 @pytest.mark.cuda

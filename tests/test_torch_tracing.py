@@ -9,7 +9,8 @@ span synchronises the device; a torch op run inside a span has its
 tiny isolate through the CLI's SAM route every top-level phase of the run
 appears, cleaning holds its `clean.*` spans, and the consensus QC holds
 `align.*` spans whose `align.kernels` counters equal the launches' own
-inputs and outputs, recorded around `sw_batch.sw_dp`/`sw_traceback`.
+inputs and outputs, recorded around `sw_batch.sw_dp`/`sw_traceback`, and
+count fewer query rows sent than the jobs' reads hold.
 Path clustering opens `cluster.gene_paths`, `cluster.split` and
 `cluster.components` for each AMR gene, with the counters `genes`, `paths`
 and `alleles`, and synchronises nothing.
@@ -353,3 +354,23 @@ def test_qc_align_spans_count_the_launches_work(sam_run):
     table = err[err.index("amira-tpu phase timings:"):]
     assert "\n  ingest_gene_calls " in table
     assert "\n    align.kernels" in table and f"x{len(kernels)}  launches={len(own)}," in table
+
+
+def test_qc_align_spans_count_the_rows_kept(sam_run):
+    """Each `align.kernels` span under the consensus QC counts its jobs'
+    whole query rows (`rows_full`) and the rows sent (`rows_kept`), whose
+    cells are `live_cells`. The fixture's reads hold 3-6 genes of 500 bp
+    (make_isolate's defaults) and its consensus genes are 500 bp, so every
+    job's read is longer than the rows its band can reach: fewer are kept,
+    at most a gene plus the band a job."""
+    phases, launches, _err = sam_run
+    (qc,) = [p for p in phases if p["phase"] == "ingest_gene_calls"]
+    kernels = list(_spans(qc, "align.kernels"))
+    own = [ln for ln in launches if ln["phase"] == "ingest_gene_calls"]
+    assert kernels and len(kernels) == len(own)
+    for span, ln in zip(kernels, own):
+        c = span["counters"]
+        assert c["rows_kept"] == int(ln["qlens"].sum())
+        assert c["rows_kept"] * ln["W"] == c["live_cells"]
+        assert c["rows_kept"] < c["rows_full"]
+        assert int(ln["qlens"].max()) <= 500 + ln["W"] - 1
